@@ -1,0 +1,134 @@
+"""Feature-index retrieval: exact k-NN (kernel K3 ``knn_topk``) and the
+inverse-square-distance blend.
+
+Port of ``rvc_tpu/ops/retrieval.py`` (``knn_search``, ``retrieve_blend``,
+``FeatureIndex``) with the k-NN routed to the hand-written kernel in
+``csrc/knn.cu``, the counterpart of ``ops/retrieval_pallas.py``'s
+``knn_search_pallas``. Every search on a CUDA tensor goes through the
+kernel; the plain version ``knn_search_plain`` runs for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+launches = {"knn_topk": 0}
+MAX_K = 8
+_QB, _VB = 64, 64  # query and index rows per block, as in csrc/knn.cu
+
+
+def reset_launches() -> None:
+    launches["knn_topk"] = 0
+
+
+def knn_search_plain(queries: torch.Tensor, vectors: torch.Tensor,
+                     k: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact k-NN by squared L2: queries [T, D], vectors [N, D] ->
+    (distances [T, k] ascending and clamped to >= 0, indices [T, k])."""
+    q2 = torch.sum(queries ** 2, dim=1, keepdim=True)
+    v2 = torch.sum(vectors ** 2, dim=1)[None, :]
+    d2 = q2 + v2 - 2.0 * (queries @ vectors.T)
+    neg, idx = torch.topk(-d2, k, dim=1, sorted=True)
+    return torch.clamp(-neg, min=0.0), idx
+
+
+def _lib():
+    from ._build import load
+
+    lib = load("knn")
+    if not getattr(lib, "_rvc_typed", False):
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.rvc_knn_topk.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, p]
+        lib.rvc_knn_topk.restype = i
+        lib._rvc_typed = True
+    return lib
+
+
+def split_plan(n_q: int, n_v: int) -> Tuple[int, int]:
+    """(splits of the index, rows per split) so that about two blocks per
+    SM of an H100 (132 SMs) are in flight."""
+    q_blocks = -(-n_q // _QB)
+    v_tiles = -(-n_v // _VB)
+    n_split = max(1, min(v_tiles, -(-264 // q_blocks)))
+    tiles_per_split = -(-v_tiles // n_split)
+    n_split = -(-v_tiles // tiles_per_split)
+    return n_split, tiles_per_split * _VB
+
+
+def knn_topk(queries: torch.Tensor, vectors: torch.Tensor,
+             k: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: exact squared-L2 k-NN. For a CUDA tensor it launches the kernel
+    (f32 [T, D] queries, f32 [N, D] index, k <= 8) or raises; for a CPU
+    tensor it runs ``knn_search_plain``. Indices are int64."""
+    if queries.device.type == "cpu":
+        return knn_search_plain(queries, vectors, k)
+    if queries.device.type != "cuda" or vectors.device != queries.device:
+        raise ValueError("knn_topk: queries and vectors must be on one CUDA device")
+    for name, t in (("queries", queries), ("vectors", vectors)):
+        if t.dtype != torch.float32 or t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"knn_topk: {name} must be contiguous 2-D float32")
+    n_q, dim = queries.shape
+    n_v = vectors.shape[0]
+    if vectors.shape[1] != dim:
+        raise ValueError("knn_topk: queries and vectors differ in width")
+    if not 1 <= k <= MAX_K or n_v < k or n_q < 1:
+        raise ValueError(f"knn_topk: need 1 <= k <= {MAX_K} and N >= k")
+    n_split, split_rows = split_plan(n_q, n_v)
+    dev = queries.device
+    out_d = torch.empty((n_q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_q, k), dtype=torch.int64, device=dev)
+    part_d = torch.empty((n_split, n_q, MAX_K), dtype=torch.float32, device=dev)
+    part_i = torch.empty((n_split, n_q, MAX_K), dtype=torch.int64, device=dev)
+    err = _lib().rvc_knn_topk(
+        queries.data_ptr(), vectors.data_ptr(), out_d.data_ptr(),
+        out_i.data_ptr(), part_d.data_ptr(), part_i.data_ptr(), n_q, n_v, dim,
+        k, n_split, split_rows, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"knn_topk: CUDA error {err} at launch")
+    launches["knn_topk"] += 1
+    return out_d, out_i
+
+
+def retrieve_blend(feats: torch.Tensor, vectors: torch.Tensor,
+                   index_rate: Union[float, torch.Tensor],
+                   k: int = 8) -> torch.Tensor:
+    """Blend each query frame with its k nearest index vectors:
+    w_j = (1/d_j^2) normalized, retrieved = sum_j w_j v_{ix_j},
+    out = index_rate * retrieved + (1 - index_rate) * feats."""
+    d2, idx = knn_topk(feats, vectors, k)
+    w = 1.0 / torch.square(torch.clamp(d2, min=1e-12))
+    w = w / torch.sum(w, dim=1, keepdim=True)
+    retrieved = torch.sum(vectors[idx] * w[..., None], dim=1)
+    return index_rate * retrieved + (1.0 - index_rate) * feats
+
+
+class FeatureIndex:
+    """An index of [N, D] float32 vectors resident on one device."""
+
+    def __init__(self, vectors, device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        v = np.ascontiguousarray(np.asarray(vectors, dtype=np.float32))
+        self.vectors = torch.from_numpy(v).to(self.device)
+        self.ntotal = v.shape[0]
+
+    @classmethod
+    def load(cls, path: str, device: Union[str, torch.device] = "cuda"):
+        """Load a ``.npz`` index with key ``vectors``."""
+        with np.load(path) as data:
+            return cls(data["vectors"], device=device)
+
+    def save(self, path: str) -> None:
+        np.savez(path, vectors=self.vectors.cpu().numpy())
+
+    def search(self, queries: torch.Tensor, k: int = 8):
+        return knn_topk(queries.to(self.device, torch.float32).contiguous(),
+                        self.vectors, k)
+
+    def blend(self, feats: torch.Tensor, index_rate: float, k: int = 8):
+        return retrieve_blend(feats, self.vectors, index_rate, k)
