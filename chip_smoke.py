@@ -14,13 +14,17 @@ Phases, in this order, each printing one JSON line:
   stream   ``voice_conversion_fused_stream`` over 4 requests, with the
            launch counts of that run
   kernels  hold each kernel against its plain PyTorch version at the shapes
-           the pipeline recorded (bf16 and f32), with stated tolerances, and
-           time the kernel, the plain version and one library call
+           the pipeline recorded (bf16 and f32) and at a few shapes off the
+           path (K2 at C=512 and at a padded C=48, K3 at k=3 and at a
+           compressed index), with stated tolerances, and time the kernel,
+           the plain version and one library call
   stages   device time of each stage of one conversion (CUDA events)
   trace    (only when asked for) one conversion under torch.profiler:
            device busy time, idle share, the heaviest kernels
 
     python3 chip_smoke.py env,build,pipeline,kernels   # a subset of the phases
+    python3 chip_smoke.py env,build,unit   # the kernel checks alone, at the
+                                           # serving shapes, without the models
 Then a ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. There is no CPU fallback: without CUDA the script fails.
@@ -42,8 +46,15 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 PEAK_BF16 = 989e12         # dense bf16 tensor-core FLOP/s
 PEAK_TF32 = 495e12         # dense tf32 tensor-core FLOP/s (3xTF32: 3 per f32 FLOP)
-PEAK_F32 = 67e12           # f32 FLOP/s outside the tensor cores
 EXTRA_KNN_N = 10000        # a k-means-compressed index, checked beside the path's
+# the kernels' shapes on the 48 kHz serving path, for the `unit` phase (the
+# `kernels` phase takes them from the pipeline's own run)
+UNIT_SHAPES = [("stage", 256, 19176, "bfloat16", (3, 7, 11), (1, 3, 5)),
+               ("stage", 128, 191760, "bfloat16", (3, 7, 11), (1, 3, 5)),
+               ("knn", 799, 65536, 768, 8)]
+# off the path: (C, T, kernel size) for K2 in f32, (Q, N, D, k) for K3
+EXTRA_CHAIN_SHAPES = [(512, 4099, 7), (48, 3000, 11)]
+EXTRA_KNN_SHAPES = [(799, EXTRA_KNN_N, 768, 8), (301, 5003, 256, 3)]
 
 
 def emit(obj) -> None:
@@ -161,11 +172,11 @@ def record_path_shapes(fn):
     shapes = []
     stage, knn = nsf._resblock_stage, rt.knn_topk
 
-    def stage_hook(x, blocks):
+    def stage_hook(x, blocks, cache=None):
         shapes.append(("stage", x.shape[1], x.shape[2], x.dtype,
                        tuple(blk.kernel_size for blk in blocks),
                        tuple(blocks[0].dilations)))
-        return stage(x, blocks)
+        return stage(x, blocks, cache)
 
     def knn_hook(q, v, k=8):
         shapes.append(("knn", q.shape[0], v.shape[0], q.shape[1], k))
@@ -182,7 +193,9 @@ def record_path_shapes(fn):
 def phase_kernels(shapes):
     """K1/K2/K3 against their plain versions at the shapes the main path
     gave them (``shapes`` from record_path_shapes), in the path's dtype and
-    in f32. Returns per-kernel records summed over the path's launches."""
+    in f32, then at the shapes off the path. The wrappers get a weight
+    cache, as the modules give them, so the times are the kernels'. Returns
+    per-kernel records summed over the path's launches."""
     import torch
 
     from rvc_tpu_torch.models.generators.nsf import MRF_MAX_CHANNELS
@@ -227,7 +240,10 @@ def phase_kernels(shapes):
         if kind != "stage":
             continue
         c, t, path_dtype, ks, dil = shape
+        path_dtype = getattr(torch, path_dtype) if isinstance(path_dtype, str) \
+            else path_dtype
         chains = [_rand_chain(gen, c, k, dev, dil) for k in ks]
+        caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
         x32 = (torch.randn((1, c, t), generator=gen) * 0.3).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             x = x32.to(dtype)
@@ -241,17 +257,17 @@ def phase_kernels(shapes):
                 nbytes += sum(2 * len(dil) * k * c * c for k in ks) * (
                     2 if dtype == torch.bfloat16 else 4)
                 check("mrf_stage", key,
-                      lambda: rb.mrf_stage(x, chains, ks, dil),
+                      lambda: rb.mrf_stage(x, chains, ks, dil, cache=caches[-1]),
                       lambda: rb.mrf_stage_plain(x, chains, dil),
                       lambda: [_library_chain(x, ch, dil) for ch in chains],
                       lambda: rb.mrf_stage_plain(x, chains, dil),
                       2e-2 if dtype == torch.bfloat16 else 1e-4,
                       bound(nbytes, peak), on_path)
-            else:  # K2: one launch (or one per dilation pair) per chain
-                for k, ch in zip(ks, chains):
+            else:  # K2: two conv launches per dilation of each chain
+                for k, ch, cache in zip(ks, chains, caches):
                     flops = 2.0 * 2 * len(dil) * k * c * c * t
                     check("resblock_chain", {**key, "K": k},
-                          lambda: rb.resblock_chain(x, *ch, dil),
+                          lambda: rb.resblock_chain(x, *ch, dil, cache=cache),
                           lambda: rb.resblock_chain_plain(x, *ch, dil),
                           lambda: _library_chain(x.float(), ch, dil),
                           lambda: rb.resblock_chain_plain(x, *ch, dil),
@@ -260,10 +276,23 @@ def phase_kernels(shapes):
                                 [(3 * flops, PEAK_TF32)]), on_path)
         del chains, x32
 
+    dil = (1, 3, 5)
+    for c, t, k in EXTRA_CHAIN_SHAPES:  # K2 off the path, f32
+        ch = _rand_chain(gen, c, k, dev, dil)
+        x = (torch.randn((1, c, t), generator=gen) * 0.3).to(dev)
+        cache = rb.WeightCache()
+        check("resblock_chain", {"C": c, "T": t, "dtype": "float32", "K": k},
+              lambda: rb.resblock_chain(x, *ch, dil, cache=cache),
+              lambda: rb.resblock_chain_plain(x, *ch, dil),
+              lambda: _library_chain(x, ch, dil),
+              lambda: rb.resblock_chain_plain(x, *ch, dil), 1e-4,
+              bound(8 * x.numel() + 4 * 2 * len(dil) * k * c * c,
+                    [(3 * 2.0 * 2 * len(dil) * k * c * c * t, PEAK_TF32)]), False)
+        del ch, x
+
     knn_shapes = [tuple(s[1:]) for s in shapes if s[0] == "knn"]
     require(knn_shapes, "the main path made no retrieval search")
-    n_q, _, d, k = knn_shapes[0]
-    for n_q, n_v, d, k in knn_shapes + [(n_q, EXTRA_KNN_N, d, k)]:
+    for n_q, n_v, d, k in knn_shapes + EXTRA_KNN_SHAPES:
         q = torch.randn((n_q, d), generator=gen).to(dev)
         v = torch.randn((n_v, d), generator=gen).to(dev)
         dist, idx = rt.knn_topk(q, v, k)
@@ -281,7 +310,7 @@ def phase_kernels(shapes):
               lambda: torch.topk(torch.cdist(q, v), k, dim=1, largest=False),
               lambda: ref_d[:, :k], 1e-4,
               bound(4 * (n_q * d + n_v * d) + 12 * n_q * k,
-                    [(2.0 * n_q * n_v * d, PEAK_F32)]),
+                    [(3 * 2.0 * n_q * n_v * d, PEAK_TF32)]),
               (n_q, n_v, d, k) in knn_shapes)
         require(bad_rows == 0, f"knn_topk N={n_v}: {bad_rows} rows with other indices")
         del q, v
@@ -391,6 +420,13 @@ def phase_small_reference():
             "small model: kernels not launched")
 
 
+def _weight_cache_builds(decoder) -> int:
+    """How often the decoder's stage tails have folded or packed weights:
+    the builds of every weight cache on its ResBlocks and stages."""
+    return (sum(blk._folded.builds + blk.packed.builds for blk in decoder.resblocks)
+            + sum(c.builds for c in decoder._stage_caches))
+
+
 def _segment_len(pipe, n16: int) -> int:
     """Output samples of one fused conversion of n16 input samples."""
     return pipe._p_len(n16, pipe._bucket_len(n16)) * pipe.upp
@@ -420,9 +456,14 @@ def phase_pipeline(smi: str):
         return out
 
     shapes = record_path_shapes(run)  # warm-up, and the kernels' shapes
+    builds = _weight_cache_builds(synth.dec)
     _reset_counts()
     out = run()
     counts = _counts()
+    # the second conversion folds, pads and packs no stage-tail weights
+    require(builds > 0 and _weight_cache_builds(synth.dec) == builds,
+            f"weight caches rebuilt on a second conversion: {builds} -> "
+            f"{_weight_cache_builds(synth.dec)}")
     # 10 s padded by 3 s a side: HuBERT gives 799 frames of the 16 s bucket,
     # so 1598 latent frames (not 1600) and 479040 samples, as the JAX
     # pipeline's _p_len gives
@@ -440,6 +481,7 @@ def phase_pipeline(smi: str):
     wall = statistics.median(walls)
     emit({"phase": "pipeline", "gpu": smi, "samples": int(out.shape[0]),
           "peak_abs": float(np.abs(out).max()), "launches": counts,
+          "weight_cache_builds": builds,
           "wall_s_per_conversion": wall, "wall_s_all": walls,
           "realtime_factor": 10.0 / wall,
           "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
@@ -545,7 +587,8 @@ def phase_trace(run, smi: str):
 
 KERNEL_META = {
     "mrf_stage": ("rvc_tpu_torch/csrc/resblock.cu", "rvc_tpu/ops/resblock_pallas.py:437"),
-    "resblock_chain": ("rvc_tpu_torch/csrc/resblock.cu", "rvc_tpu/ops/resblock_pallas.py:239"),
+    "resblock_chain": ("rvc_tpu_torch/csrc/resblock_chain.cu",
+                       "rvc_tpu/ops/resblock_pallas.py:239"),
     "knn_topk": ("rvc_tpu_torch/csrc/knn.cu", "rvc_tpu/ops/retrieval_pallas.py:125"),
 }
 
@@ -568,6 +611,8 @@ def main(argv) -> int:
     if "small" in phases:
         phase_small_reference()
     counts, rec = {}, {}
+    if "unit" in phases:
+        phase_kernels(UNIT_SHAPES)
     if "pipeline" in phases:
         pipe, audio, index, counts, run, shapes = phase_pipeline(smi)
         if "stream" in phases:

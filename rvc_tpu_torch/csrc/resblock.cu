@@ -1,11 +1,10 @@
-// HiFi-GAN decoder stage tails on Hopper: kernels K1 `mrf_stage` and
-// K2 `resblock_chain`, one kernel for both.
+// HiFi-GAN decoder stage tails on Hopper: kernel K1 `mrf_stage`. (K2
+// `resblock_chain`, the one-chain kernel of the wide stages, is
+// resblock_chain.cu.)
 //
-// Replaces the TPU kernels in rvc_tpu/ops/resblock_pallas.py:
-//   K1 fused_mrf      (_fused_mrf_impl, pallas_call at :437): the mean over
-//                     the parallel ResBlock chains of one decoder stage;
-//   K2 fused_resblock (_fused_resblock_impl, pallas_call at :239): one chain.
-// A chain is, per dilation d: m = conv_d(leaky(y)); y = y + conv_1(leaky(m)),
+// Replaces the TPU kernel rvc_tpu/ops/resblock_pallas.py fused_mrf
+// (_fused_mrf_impl, pallas_call at :437): the mean over the parallel
+// ResBlock chains of one decoder stage. A chain is, per dilation d: m = conv_d(leaky(y)); y = y + conv_1(leaky(m)),
 // with values outside [0, T) zeroed after every conv, as the direct convs'
 // zero padding requires.
 //
@@ -31,19 +30,16 @@
 //           big = tf32(v) and small = tf32(v - big), and every product is
 //           big*big + big*small + small*big, about 21 bits of each product
 //           (the dropped small*small term is below f32's rounding). K1 on f32
-//           input and K2 (f32 compute, I/O in the caller's dtype).
+//           input.
 //
 // Shared memory holds y (f32, rows padded so the fragment loads hit distinct
 // banks) and m (bf16 or f32). A warp computes 32 rows x 8*NT channels at a
-// time. For K1 the tile is 32 rows per warp row of the last conv, so that
-// conv's outputs map one to one onto the 8 warps and the sum over chains
-// stays in registers. K2 takes the largest tile that fits; when that would
-// be under 64 rows the wrapper splits the chain into one launch per
-// dilation pair, as the TPU code does for k = 7 and 11 at C = 256. The
-// weights are packed by the wrapper in B-fragment order, so a warp reads
-// each fragment with one coalesced load per lane (from L2, shared by the
-// block's warps through L1). Channels are padded by the wrapper to 16, 32
-// or a multiple of 64.
+// time. The tile is 32 rows per warp row of the last conv, so that conv's
+// outputs map one to one onto the 8 warps and the sum over chains stays in
+// registers. The weights are packed by the wrapper in B-fragment order, so a
+// warp reads each fragment with one coalesced load per lane (from L2, shared
+// by the block's warps through L1). Channels are padded by the wrapper to
+// 16, 32 or a multiple of 64.
 //
 // Layout: x and out are [B, C, T] (contiguous), f32 or bf16. Weights are
 // ordered chain-major, conv1 then conv2 per dilation; biases f32
@@ -284,10 +280,9 @@ __device__ void conv(float* ys, typename Ops<BF16>::M* ms,
   }
 }
 
-// MEAN (K1): the mean over a.n_chains chains, summed in registers; needs
-// tile == kWM * kWarps / (C / (8 * NT)). Otherwise (K2) one chain, or a run
-// of its dilation pairs, at any tile.
-template <bool BF16, typename T, int NT, bool MEAN>
+// The mean over a.n_chains chains, summed in registers; needs
+// tile == kWM * kWarps / (C / (8 * NT)).
+template <bool BF16, typename T, int NT>
 __global__ void __launch_bounds__(kThreads, 1)
 stage_kernel(const T* __restrict__ x, T* __restrict__ out,
              const typename Ops<BF16>::W* __restrict__ w,
@@ -339,8 +334,8 @@ stage_kernel(const T* __restrict__ x, T* __restrict__ out,
       wc += conv_frags;
       bc += C;
       rem -= hk;
-      if (MEAN && i == a.n_dil - 1)
-        conv<BF16, NT, false, MEAN>(ys, ms, wc, bc, K, 1, a.halo - rem,
+      if (i == a.n_dil - 1)
+        conv<BF16, NT, false, true>(ys, ms, wc, bc, K, 1, a.halo - rem,
                                     a.halo + a.tile + rem, g0, a, sum);
       else
         conv<BF16, NT, false, false>(ys, ms, wc, bc, K, 1, a.halo - rem,
@@ -351,7 +346,7 @@ stage_kernel(const T* __restrict__ x, T* __restrict__ out,
     }
   }
 
-  if (MEAN) {
+  {
     // the mean over chains, staged through y's rows for a coalesced store
     const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
     const int ncg = C / (NT * 8);
@@ -379,13 +374,13 @@ stage_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
-template <bool BF16, typename T, int NT, bool MEAN>
+template <bool BF16, typename T, int NT>
 cudaError_t launch(const void* x, void* out, const void* w, const float* b,
                    int batch, const Args& a, cudaStream_t stream) {
   const size_t smem = (size_t)(a.tile + 2 * a.halo) *
                       (sizeof(float) * a.ldy +
                        sizeof(typename Ops<BF16>::M) * a.ldm);
-  auto kernel = stage_kernel<BF16, T, NT, MEAN>;
+  auto kernel = stage_kernel<BF16, T, NT>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -396,14 +391,14 @@ cudaError_t launch(const void* x, void* out, const void* w, const float* b,
   return cudaGetLastError();
 }
 
-template <bool BF16, typename T, bool MEAN>
+template <bool BF16, typename T>
 cudaError_t launch_nt(int nt, const void* x, void* out, const void* w,
                       const float* b, int batch, const Args& a,
                       cudaStream_t stream) {
   switch (nt) {
-    case 8: return launch<BF16, T, 8, MEAN>(x, out, w, b, batch, a, stream);
-    case 4: return launch<BF16, T, 4, MEAN>(x, out, w, b, batch, a, stream);
-    case 2: return launch<BF16, T, 2, MEAN>(x, out, w, b, batch, a, stream);
+    case 8: return launch<BF16, T, 8>(x, out, w, b, batch, a, stream);
+    case 4: return launch<BF16, T, 4>(x, out, w, b, batch, a, stream);
+    case 2: return launch<BF16, T, 2>(x, out, w, b, batch, a, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -412,25 +407,21 @@ cudaError_t launch_nt(int nt, const void* x, void* out, const void* w,
 
 extern "C" {
 
-// One decoder stage tail on x [B, C, T] -> out, both bf16 (io_bf16) or f32.
-//   mean = 1 (K1): the mean over n_chains chains of kernel sizes ks; tile
-//            must be 32 * 8 / (C / (8 * nt)) rows. Dot operands in bf16
-//            (ops_bf16, bf16 I/O only) or 3xTF32 (f32 I/O).
-//   mean = 0 (K2): one chain (n_chains = 1), 3xTF32, any tile.
+// One decoder stage tail on x [B, C, T] -> out: the mean over n_chains
+// chains of kernel sizes ks; tile must be 32 * 8 / (C / (8 * nt)) rows.
+// bf16: x and out bf16 and bf16 dot operands; else f32 I/O and 3xTF32.
 // nt in {2, 4, 8}: channel tiles of 8 per warp item; C a multiple of 8 * nt
-// (and of 16 for bf16 operands). w: B fragments packed by the wrapper
+// and of 16. w: B fragments packed by the wrapper
 // (ops/resblock.py:_pack_fragments); b f32 [n_convs][C].
 int rvc_resblock_stage(const void* x, void* out, const void* w, const float* b,
                        int batch, int channels, int length, int tile, int nt,
                        int n_chains, const int* ks, int n_dil, const int* dil,
-                       float slope, int io_bf16, int ops_bf16, int mean,
-                       void* stream) {
+                       float slope, int bf16, void* stream) {
   if (n_chains < 1 || n_chains > kMaxChains || n_dil < 1 || n_dil > kMaxDil ||
       (nt != 2 && nt != 4 && nt != 8) || channels % (8 * nt) != 0 ||
       channels % 16 != 0 || tile < 1 || length < 1 || batch < 1)
     return (int)cudaErrorInvalidValue;
-  const int ncg = channels / (8 * nt);
-  if (mean ? tile * ncg != kWM * kWarps : n_chains != 1)
+  if (tile * (channels / (8 * nt)) != kWM * kWarps)
     return (int)cudaErrorInvalidValue;
   Args a;
   a.channels = channels;
@@ -448,22 +439,11 @@ int rvc_resblock_stage(const void* x, void* out, const void* w, const float* b,
     if (h > a.halo) a.halo = h;
   }
   // rows padded so the fragment loads of a warp hit distinct banks
-  a.ldy = channels + (ops_bf16 ? 8 : 4);
+  a.ldy = channels + (bf16 ? 8 : 4);
   a.ldm = a.ldy;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (ops_bf16) {
-    if (!io_bf16 || !mean) return (int)cudaErrorInvalidValue;
-    return (int)launch_nt<true, __nv_bfloat16, true>(nt, x, out, w, b, batch,
-                                                     a, st);
-  }
-  if (mean) {
-    if (io_bf16) return (int)cudaErrorInvalidValue;
-    return (int)launch_nt<false, float, true>(nt, x, out, w, b, batch, a, st);
-  }
-  return (int)(io_bf16 ? launch_nt<false, __nv_bfloat16, false>(
-                             nt, x, out, w, b, batch, a, st)
-                       : launch_nt<false, float, false>(nt, x, out, w, b,
-                                                        batch, a, st));
+  return (int)(bf16 ? launch_nt<true, __nv_bfloat16>(nt, x, out, w, b, batch, a, st)
+                    : launch_nt<false, float>(nt, x, out, w, b, batch, a, st));
 }
 
 }  // extern "C"

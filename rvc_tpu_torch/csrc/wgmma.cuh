@@ -1,0 +1,339 @@
+// Hopper (sm_90a) building blocks shared by the tensor-core kernels:
+// mbarriers, bulk and TMA copies into shared memory, shared-memory matrix
+// descriptors and the warpgroup products wgmma m64nNk8 on tf32 operands, and
+// the 3xTF32 operand split.
+//
+// Operand layouts. Both operands of a tf32 wgmma are K-major (the depth is
+// contiguous). Two layouts are used:
+//
+// (a) Without swizzle (resblock_chain.cu). The tile is cut into 16-byte
+//     depth groups (4 floats), and one group holds all rows of the tile,
+//     16 bytes per row:
+//       byte offset of (row, depth) = ((depth / 4) * rows + row) * 16 + (depth % 4) * 4
+//     An 8-row x 16-byte core matrix is then 128 contiguous bytes at any
+//     row, so a tile may start at any row (a conv tap is a row offset), rows
+//     of a warp store without bank conflicts, and the descriptor's strides
+//     are: leading (next depth group) = rows * 16 bytes, stride (next 8
+//     rows) = 128 bytes.
+// (b) 128-byte swizzle (knn.cu): rows of 32 floats as TMA writes them, see
+//     make_tile_map below.
+//
+// 3xTF32. The tensor cores read the top 19 bits of an f32 operand and ignore
+// the low 13 mantissa bits. An f32 value v is therefore its own "big" part
+// (the hardware reads v & 0xffffe000), and small = v - (v & 0xffffe000) is
+// exact in f32. A product a*b is computed as small_a*big_b + big_a*small_b
+// + big_a*big_b with f32 accumulation; the dropped small*small term and the
+// truncation of the small parts are each about 2^-20 relative.
+
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <dlfcn.h>
+#include <stdint.h>
+
+namespace hopper {
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- 3xTF32 split -------------------------------------------------------
+
+__device__ __forceinline__ float tf32_small(float v) {
+  return v - __uint_as_float(__float_as_uint(v) & 0xffffe000u);
+}
+
+__device__ __forceinline__ float4 tf32_small(float4 v) {
+  return make_float4(tf32_small(v.x), tf32_small(v.y), tf32_small(v.z),
+                     tf32_small(v.w));
+}
+
+// ---- mbarrier -----------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase differs from `parity`. A wait that lasts
+// over about two seconds is a protocol error: trap instead of hanging.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 4000000000LL) __trap();
+  }
+}
+
+// Generic-proxy writes to shared memory (st.shared) made visible
+// to the async proxy that wgmma reads operands through.
+__device__ __forceinline__ void fence_async_proxy() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- copies into shared memory ------------------------------------------
+
+// `bytes` contiguous bytes global -> shared by the bulk-copy engine (both
+// 16-byte aligned, bytes a multiple of 16); completion is counted on `bar`.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, int bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// ---- TMA: tiles of a row-major f32 matrix, 128-byte swizzle --------------
+//
+// A tile of 32 floats x `box_rows` rows lands as rows of 128 bytes whose
+// eight 16-byte groups are XOR-swizzled with the row number (mod 8): the
+// layout a wgmma descriptor of the 128-byte-swizzle type reads, and one that
+// neither the copy nor the products meet bank conflicts in. The tile's
+// shared-memory address must be a multiple of 1024. Rows and columns past
+// the matrix are filled with zeros.
+
+typedef CUresult (*TensorMapEncodeFn)(
+    CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+    const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+    CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The descriptor of a [rows, cols] f32 matrix (cols a multiple of 4) for
+// tiles of 32 columns x box_rows rows. The encoder lives in libcuda, which
+// the process has loaded already; it is looked up there by name, so the
+// kernels' libraries link against the runtime only. False on failure.
+inline bool make_tile_map(CUtensorMap* map, const float* base, int rows, int cols,
+                          int box_rows) {
+  static TensorMapEncodeFn encode = nullptr;
+  if (!encode) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW);
+    void* fn = lib ? dlsym(lib, "cuTensorMapEncodeTiled") : nullptr;
+    if (!fn) return false;
+    encode = reinterpret_cast<TensorMapEncodeFn>(fn);
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(float)};
+  const cuuint32_t box[2] = {32, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                const_cast<float*>(base), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// One tile, first column `col` and first row `row`, global -> shared;
+// completion (the tile's full size in bytes) is counted on `bar`.
+__device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
+                                              int col, int row, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(col), "r"(row)
+      : "memory");
+}
+
+// Descriptor of a K-major operand tile in that layout (rows of 128 bytes,
+// 128-byte swizzle, 8-row groups 1024 bytes apart). A depth step of 8 floats
+// further on is desc_advance(desc, 32).
+__device__ __forceinline__ uint64_t operand_desc_sw128(const void* p) {
+  const uint64_t addr = (smem_addr(p) & 0x3ffffu) >> 4;
+  return addr | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// ---- wgmma --------------------------------------------------------------
+
+// Descriptor of a K-major operand tile in layout (a), without swizzle:
+// `p` is the tile's first row at the first depth group of this product.
+__device__ __forceinline__ uint64_t operand_desc(const void* p, int rows) {
+  const uint64_t addr = (smem_addr(p) & 0x3ffffu) >> 4;
+  const uint64_t lbo = (uint64_t)(rows * 16) >> 4;
+  const uint64_t sbo = 128 >> 4;
+  return addr | (lbo << 16) | (sbo << 32);
+}
+
+// The descriptor of the same tile `bytes` further on in shared memory.
+__device__ __forceinline__ uint64_t desc_advance(uint64_t desc, int bytes) {
+  return desc + (uint64_t)(bytes >> 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of the accumulators across
+// the asynchronous products.
+template <int R>
+__device__ __forceinline__ void acc_fence(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (64 x N, f32) = a (64 x 8) * b^T (N x 8) + (scale_d ? d : 0), both
+// operands tf32 from shared memory, for N = 128, 152 and 176: the
+// accumulator has N / 2 registers a thread, and thread `t` of the warpgroup
+// holds d[i] = D[16 * (t / 32) + (t % 32) / 4 + 8 * ((i / 2) % 2)]
+//                [8 * (i / 4) + 2 * (t % 4) + i % 2].
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[76], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %78, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n152k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75}, "
+      "%76, %77, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[88], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %90, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n176k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87}, "
+      "%88, %89, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// One depth step (8 floats = 2 depth groups) of a 3xTF32 product:
+// d += a_small * b_big + a_big * b_small + a_big * b_big. A "big"
+// descriptor addresses the plane of raw f32 values, a "small" one the plane
+// of their tf32_small parts.
+template <int R>
+__device__ __forceinline__ void wgmma_3xtf32(float (&d)[R], uint64_t a_big,
+                                             uint64_t a_small, uint64_t b_big,
+                                             uint64_t b_small, int scale_d) {
+  wgmma_tf32(d, a_small, b_big, scale_d);
+  wgmma_tf32(d, a_big, b_small, 1);
+  wgmma_tf32(d, a_big, b_big, 1);
+}
+
+}  // namespace hopper

@@ -6,6 +6,9 @@ from typing import Union
 
 import torch
 
+# streaming multiprocessors of an H100 SXM: what the kernels' planners fill
+H100_SMS = 132
+
 
 def resolve_device(device: Union[str, torch.device, None] = "cuda") -> torch.device:
     """Return the torch device an entry point runs on.

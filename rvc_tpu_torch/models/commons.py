@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.resblock import WeightCache, resblock_chain
+
 LRELU_SLOPE = 0.1
 
 
@@ -156,7 +158,11 @@ class ResBlock(nn.Module):
 
     Holds the chain's weight-normalized convs. The decoder does not call it
     per chain: ``generators.nsf._resblock_stage`` gathers every chain's
-    folded weights and runs the stage tail through ``ops.resblock``."""
+    folded weights and runs the stage tail through ``ops.resblock``.
+
+    The folded weights and the kernel's packed weights are cached on the
+    module and rebuilt when a parameter changes, so inference folds and
+    packs once."""
 
     def __init__(self, channels: int, kernel_size: int = 3,
                  dilations: Sequence[int] = (1, 3, 5)):
@@ -169,17 +175,23 @@ class ResBlock(nn.Module):
         self.convs2 = nn.ModuleList(
             Conv1d(channels, channels, kernel_size, dilation=1, weight_norm=True)
             for _ in self.dilations)
+        self._folded = WeightCache()   # weight norm applied
+        self.packed = WeightCache()    # the chain kernel's packed weights
 
     def chain_weights(self):
         """(w1s, b1s, w2s, b2s): folded [C, C, K] weights and biases per
-        dilation, as ``ops.resblock`` takes them."""
-        return ([c.effective_weight() for c in self.convs1],
-                [c.bias for c in self.convs1],
-                [c.effective_weight() for c in self.convs2],
-                [c.bias for c in self.convs2])
+        dilation, as ``ops.resblock`` takes them. With gradients off the
+        folded weights are kept until a parameter changes."""
+        def fold():
+            return ([c.effective_weight() for c in self.convs1],
+                    [c.bias for c in self.convs1],
+                    [c.effective_weight() for c in self.convs2],
+                    [c.bias for c in self.convs2])
+
+        if torch.is_grad_enabled():
+            return fold()
+        return self._folded.get(list(self.parameters()), "folded", fold)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        from ..ops.resblock import resblock_chain
-
         return resblock_chain(x, *self.chain_weights(), self.dilations,
-                              slope=LRELU_SLOPE)
+                              slope=LRELU_SLOPE, cache=self.packed)

@@ -5,7 +5,9 @@ convs, after every transposed-conv upsample. Each stage tail runs through
 the hand-written kernels of ``ops/resblock.py``: stages with C <= 128 as
 one ``mrf_stage`` launch (all chains at once), wider stages as
 ``resblock_chain`` per chain, which at the 48 kHz serving shapes is the
-split the JAX gates make (K1 for C = 128, 64, 32; K2 for C = 256).
+split the JAX gates make (K1 for C = 128, 64, 32; K2 for C = 256). The
+kernels' packed weights are cached (per stage for K1, per chain for K2), so
+a second conversion folds and packs nothing.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ...ops.resblock import mrf_stage, resblock_chain
+from ...ops.resblock import WeightCache, mrf_stage, resblock_chain
 from ..commons import (LRELU_SLOPE, Conv1d, ConvTranspose1d, ResBlock,
                        leaky_relu, source_downsample_geometry)
 from .sine import SineGenerator
@@ -24,18 +26,19 @@ from .sine import SineGenerator
 MRF_MAX_CHANNELS = 128
 
 
-def _resblock_stage(x: torch.Tensor, blocks: Sequence[ResBlock]) -> torch.Tensor:
-    """One decoder stage tail: the mean over the parallel ResBlock chains."""
+def _resblock_stage(x: torch.Tensor, blocks: Sequence[ResBlock],
+                    cache: Optional[WeightCache] = None) -> torch.Tensor:
+    """One decoder stage tail: the mean over the parallel ResBlock chains.
+    ``cache`` keeps the stage's packed weights for ``mrf_stage``."""
     dil0 = blocks[0].dilations
     same_dil = all(blk.dilations == dil0 for blk in blocks)
     if x.shape[1] <= MRF_MAX_CHANNELS and same_dil:
         return mrf_stage(x.contiguous(), [blk.chain_weights() for blk in blocks],
                          [blk.kernel_size for blk in blocks], dil0,
-                         slope=LRELU_SLOPE)
+                         slope=LRELU_SLOPE, cache=cache)
     xs = None
     for blk in blocks:
-        out = resblock_chain(x.contiguous(), *blk.chain_weights(),
-                             blk.dilations, slope=LRELU_SLOPE)
+        out = blk(x.contiguous())
         xs = out if xs is None else xs + out
     return xs / len(blocks)
 
@@ -91,6 +94,7 @@ class HiFiGANNSFGenerator(nn.Module):
         self.noise_convs = nn.ModuleList(noise_convs)
         self.resblocks = nn.ModuleList(resblocks)
         self.conv_post = Conv1d(c_in, 1, 7, padding=3, bias=False)
+        self._stage_caches = [WeightCache() for _ in range(n_up)]
 
     def forward(self, x: torch.Tensor, f0: torch.Tensor,
                 g: Optional[torch.Tensor] = None,
@@ -106,6 +110,7 @@ class HiFiGANNSFGenerator(nn.Module):
             x = up(leaky_relu(x))
             x = x + noise_conv(har_source)
             nk = self.num_kernels
-            x = _resblock_stage(x, self.resblocks[i * nk:(i + 1) * nk])
+            x = _resblock_stage(x, self.resblocks[i * nk:(i + 1) * nk],
+                                self._stage_caches[i])
         x = self.conv_post(leaky_relu(x, 0.01))
         return torch.tanh(x)

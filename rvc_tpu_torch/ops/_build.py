@@ -21,9 +21,9 @@ from typing import Dict, Iterable
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("resblock", "knn")
+SOURCES = ("resblock", "resblock_chain", "knn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-ldl")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -16,11 +16,11 @@ from typing import Tuple, Union
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from ..device import H100_SMS, resolve_device
 
 launches = {"knn_topk": 0}
 MAX_K = 8
-_QB, _VB = 64, 64  # query and index rows per block, as in csrc/knn.cu
+_QB, _VB = 128, 128  # queries per block and index rows per tile (csrc/knn.cu)
 
 
 def reset_launches() -> None:
@@ -51,11 +51,14 @@ def _lib():
 
 
 def split_plan(n_q: int, n_v: int) -> Tuple[int, int]:
-    """(splits of the index, rows per split) so that about two blocks per
-    SM of an H100 (132 SMs) are in flight."""
+    """(splits of the index, rows per split): contiguous runs of whole
+    128-row tiles, as many splits as fill the card's SMs with one block
+    each (a block takes most of an SM's shared memory; query blocks x
+    splits <= 132 where the index has that many tiles), none of them
+    empty."""
     q_blocks = -(-n_q // _QB)
     v_tiles = -(-n_v // _VB)
-    n_split = max(1, min(v_tiles, -(-264 // q_blocks)))
+    n_split = max(1, min(v_tiles, H100_SMS // q_blocks))
     tiles_per_split = -(-v_tiles // n_split)
     n_split = -(-v_tiles // tiles_per_split)
     return n_split, tiles_per_split * _VB
@@ -64,7 +67,8 @@ def split_plan(n_q: int, n_v: int) -> Tuple[int, int]:
 def knn_topk(queries: torch.Tensor, vectors: torch.Tensor,
              k: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: exact squared-L2 k-NN. For a CUDA tensor it launches the kernel
-    (f32 [T, D] queries, f32 [N, D] index, k <= 8) or raises; for a CPU
+    (f32 [T, D] queries, f32 [N, D] index, D a multiple of 4, k <= 8) or
+    raises; for a CPU
     tensor it runs ``knn_search_plain``. Indices are int64."""
     if queries.device.type == "cpu":
         return knn_search_plain(queries, vectors, k)
@@ -77,6 +81,9 @@ def knn_topk(queries: torch.Tensor, vectors: torch.Tensor,
     n_v = vectors.shape[0]
     if vectors.shape[1] != dim:
         raise ValueError("knn_topk: queries and vectors differ in width")
+    if dim % 4:
+        raise ValueError("knn_topk: the width must be a multiple of 4 "
+                         "(16-byte copies)")
     if not 1 <= k <= MAX_K or n_v < k or n_q < 1:
         raise ValueError(f"knn_topk: need 1 <= k <= {MAX_K} and N >= k")
     n_split, split_rows = split_plan(n_q, n_v)

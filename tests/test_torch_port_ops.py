@@ -180,7 +180,7 @@ def test_feature_index_roundtrip_and_search(tmp_path):
 def test_stage_tile_fits_shared_memory(c, ks, ops_bf16, expected):
     """K1's geometry in f32 at the 48 kHz stage widths: 32 rows per warp row
     of the last conv, the widest channel tiling whose buffers fit."""
-    nt, tile = rb.plan(c, ks, DIL, ops_bf16, mean=True)
+    nt, tile = rb.plan(c, ks, DIL, ops_bf16)
     assert (nt, tile) == expected
     if tile:
         assert tile * (c // (8 * nt)) == rb.WARPS * rb.WARP_ROWS
@@ -214,7 +214,7 @@ def test_tensor_core_tile(c, ks, expected):
     """K1 in bf16 takes the serving stages at 32 rows per warp row; its
     buffers (f32 state and bf16 operand rows, padded by 8) fit shared
     memory. A 48-channel stage runs padded to 64."""
-    nt, tile = rb.plan(c, ks, DIL, True, mean=True)
+    nt, tile = rb.plan(c, ks, DIL, True)
     assert tile == expected
     if tile:
         cp = rb.padded_channels(c)
@@ -237,17 +237,125 @@ def test_pack_fragments_f32_follows_mma_layout():
                        torch.sort(w.reshape(-1)).values)
 
 
-@pytest.mark.parametrize("k,whole,pairs", [
-    (3, 64, (96, 96, 96)), (7, 32, (96, 64, 64)), (11, 0, (64, 64, 48)),
+@pytest.mark.parametrize("k", [3, 7, 11])
+@pytest.mark.parametrize("c", [64, 128, 256, 512])
+def test_conv_plan_fits_shared_memory(c, k):
+    """K2's conv kernel at every time tile it is built for and every
+    dilation of the chain: the weight ring (at least 3 stages of 32 KB),
+    two activation tiles of tile + (k - 1) d rows in two planes and the
+    barriers fit the 232,448 bytes a block may use; the tile picked for the
+    C=256 serving stage (T = 19176) is among them."""
+    blocks = -(-c // rb.CONV_BLOCK)
+    assert rb.conv_tile(19176, blocks) in rb.CONV_TILES
+    for tile in rb.CONV_TILES:
+        for d in (*DIL, 1):
+            rows, stages, smem = rb.conv_plan(k, d, tile)
+            assert rows == tile + (k - 1) * d
+            assert 3 <= stages <= rb.CONV_MAX_STAGES
+            assert smem == (stages * rb.CONV_STAGE_BYTES + 2 * 2 * rows * 32 * 4
+                            + (2 * rb.CONV_MAX_STAGES + 4) * 8)
+            assert smem <= rb.SMEM_LIMIT
+            # one more stage would not fit, or the ring is at its depth
+            assert stages == rb.CONV_MAX_STAGES or \
+                smem + rb.CONV_STAGE_BYTES > rb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("t,blocks,expected", [
+    (19176, 2, 152),   # the C=256 serving stage: 254 blocks, two waves of 132
+    (19176, 4, 152),   # C=512 there: 508 blocks, four waves (128: five)
+    (11000, 2, 176),   # 126 blocks, one wave (152 and 128: two waves)
+    (128 * 66, 2, 128),  # exactly one wave of 128-step tiles
+    (3000, 1, 128),    # under one wave whatever the tile: the smallest
 ])
-def test_chain_tensor_core_tiles_at_c256(k, whole, pairs):
-    """K2 at the C=256 serving stage: k=3 runs the whole chain in one
-    launch, k=7 and k=11 one launch per dilation pair (whole-chain tiles
-    under 64 rows), as the JAX kernel splits them."""
-    assert rb.plan(256, (k,), DIL, False, mean=False) == ((8, whole) if whole else (0, 0))
-    assert tuple(rb.plan(256, (k,), (d,), False, mean=False)[1] for d in DIL) == pairs
-    for d, tile in zip(DIL, pairs):
-        assert (tile + 2 * rb._halo((k,), (d,))) * 260 * 8 <= rb.SMEM_LIMIT
+def test_conv_tile_wastes_least_of_the_last_wave(t, blocks, expected):
+    def cost(tile):
+        return -(-(-(-t // tile) * blocks) // 132) * tile
+    tile = rb.conv_tile(t, blocks)
+    assert tile == expected
+    assert all(cost(tile) <= cost(other) for other in rb.CONV_TILES)
+
+
+def test_split_tf32_is_exact():
+    """big + small == w bit for bit in f32, big has its 13 low mantissa bits
+    clear (it is what a tensor core reads of w), and small is below one
+    tf32 ulp of w."""
+    rng = np.random.default_rng(7)
+    w = torch.from_numpy((rng.normal(size=(4096,)) * 10.0 **
+                          rng.integers(-6, 6, size=4096)).astype(np.float32))
+    big, small = rb.split_tf32(w)
+    assert torch.equal(big + small, w)
+    assert not (big.view(torch.int32) & 0x1FFF).any()
+    assert bool((small.abs() <= w.abs() * 2.0 ** -10).all())
+    assert torch.equal(rb.split_tf32(big)[0], big)  # idempotent
+
+
+@pytest.mark.parametrize("c_out,c_in,k", [(256, 256, 3), (200, 64, 5), (48, 32, 11)])
+def test_pack_conv_tf32_follows_tile_layout(c_out, c_in, k):
+    """The packed weights are the shared-memory images of K2's A tiles:
+    flat index ((((((blk * n_chunks + chunk) * K + tap) * 2 + plane) * 8 + g)
+    * 128 + row) * 4 + e) holds plane (big, small) of
+    W[128 blk + row, 32 chunk + 4 g + e, tap], zero for rows past C_out."""
+    w = torch.randn((c_out, c_in, k), generator=torch.Generator().manual_seed(k))
+    packed = rb.pack_conv_tf32(w)
+    blocks, chunks = -(-c_out // 128), c_in // 32
+    assert packed.dtype == torch.float32
+    assert packed.numel() == blocks * chunks * k * rb.CONV_STAGE_BYTES // 4
+    big, small = rb.split_tf32(w)
+    rng = np.random.default_rng(c_out)
+    for _ in range(200):
+        blk, chunk, tap = rng.integers(blocks), rng.integers(chunks), rng.integers(k)
+        plane, g, row, e = rng.integers(2), rng.integers(8), rng.integers(128), rng.integers(4)
+        flat = ((((((blk * chunks + chunk) * k + tap) * 2 + plane) * 8 + g) * 128
+                 + row) * 4 + e)
+        co, ci = 128 * blk + row, 32 * chunk + 4 * g + e
+        want = 0.0 if co >= c_out else float((big, small)[plane][co, ci, tap])
+        assert float(packed[flat]) == want
+    # both planes together are the weights: nothing lost, nothing doubled
+    planes = packed.reshape(blocks, chunks, k, 2, 8, 128, 4)
+    whole = (planes[:, :, :, 0] + planes[:, :, :, 1]).permute(0, 4, 1, 3, 5, 2)
+    assert torch.equal(whole.reshape(blocks * 128, c_in, k)[:c_out], w)
+
+
+def test_pack_chain_pads_channels_and_keeps_the_chain():
+    """A 48-channel chain packs at 64 input channels and one 128-row block;
+    the convs rebuilt from the packed planes give the plain chain."""
+    c, k, cp = 48, 7, 64
+    rng = np.random.default_rng(9)
+    w1s, b1s, w2s, b2s = _to_torch_chain(_chain_np(rng, c, k, DIL))
+    packed = rb.pack_chain(w1s, b1s, w2s, b2s, cp)
+    assert len(packed.ws) == 2 * len(DIL) and packed.bias.shape == (2 * len(DIL), 128)
+    ws, bs = [], []
+    for i, pw in enumerate(packed.ws):
+        planes = pw.reshape(1, cp // 32, k, 2, 8, 128, 4)
+        w = (planes[:, :, :, 0] + planes[:, :, :, 1]).permute(0, 4, 1, 3, 5, 2)
+        w = w.reshape(128, cp, k)
+        assert not w[c:].any() and not w[:, c:].any()
+        ws.append(w[:c, :c].contiguous())
+        assert not packed.bias[i, c:].any()
+        bs.append(packed.bias[i, :c])
+    x = torch.from_numpy((rng.normal(size=(1, c, 500)) * 0.3).astype(np.float32))
+    ref = rb.resblock_chain_plain(x, w1s, b1s, w2s, b2s, DIL)
+    out = rb.resblock_chain_plain(x, ws[0::2], bs[0::2], ws[1::2], bs[1::2], DIL)
+    assert torch.equal(ref, out)
+
+
+def test_three_tf32_products_keep_f32_precision():
+    """The kernels' product, small*big + big*small + big*big with the small
+    parts truncated to tf32 as the tensor cores read them, stays within
+    1e-6 of the f32 dot product over a 2816-term sum (one tf32 product:
+    1e-3)."""
+    rng = np.random.default_rng(11)
+    a = torch.from_numpy(rng.normal(size=(64, 2816)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(2816, 64)).astype(np.float32))
+    (ab, asm), (bb, bsm) = rb.split_tf32(a), rb.split_tf32(b)
+    asm, bsm = rb.split_tf32(asm)[0], rb.split_tf32(bsm)[0]
+    exact = a.double() @ b.double()
+    three = (asm.double() @ bb.double() + ab.double() @ bsm.double()
+             + ab.double() @ bb.double())
+    one = ab.double() @ bb.double()
+    scale = float(exact.abs().max())
+    assert float((three - exact).abs().max()) / scale <= 1e-6
+    assert float((one - exact).abs().max()) / scale >= 1e-5
 
 
 @pytest.mark.parametrize("c,cp", [(4, 16), (16, 16), (24, 32), (48, 64), (100, 128)])
@@ -261,17 +369,87 @@ def test_channel_padding_is_exact(c, cp):
     w1s, b1s, w2s, b2s = _to_torch_chain(_chain_np(rng, c, 5, DIL))
     ws, bs = [w for pair in zip(w1s, w2s) for w in pair], \
         [b for pair in zip(b1s, b2s) for b in pair]
-    xp, wps, bps = rb._pad_channels(x, ws, bs, cp)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, cp - c))
+    wps, bps = rb._pad_weights(ws, bs, cp)
     out = rb.resblock_chain_plain(xp, wps[0::2], bps[0::2], wps[1::2], bps[1::2], DIL)
     ref = rb.resblock_chain_plain(x, w1s, b1s, w2s, b2s, DIL)
     assert _rel(ref.numpy(), out[:, :c].numpy()) <= REL_TOL
     assert not out[:, c:].any()
 
 
-def test_knn_split_plan_covers_index():
-    n_split, rows = rt.split_plan(799, 65536)
-    assert n_split * rows >= 65536 and (n_split - 1) * rows < 65536
-    assert rows % 64 == 0 and -(-799 // 64) * n_split >= 132
+@pytest.mark.parametrize("n_q,n_v", [
+    (799, 65536), (799, 10000), (301, 5003), (1, 5), (20000, 100000), (128, 129),
+])
+def test_knn_split_plan_covers_index(n_q, n_v):
+    """Splits are runs of whole 128-row tiles that cover every index row
+    once, none empty, and the grid of (128-query blocks) x splits fills the
+    132 SMs with one block each where the index has the tiles for it."""
+    n_split, rows = rt.split_plan(n_q, n_v)
+    assert rows % 128 == 0 and n_split >= 1
+    starts = [s * rows for s in range(n_split)]
+    assert all(st < n_v for st in starts)                 # no empty split
+    assert starts[-1] + rows >= n_v                       # the last row is covered
+    covered = sum(min(n_v, st + rows) - st for st in starts)
+    assert covered == n_v                                 # each row once
+    q_blocks = -(-n_q // 128)
+    assert q_blocks * n_split <= 132 or n_split == 1
+    if (n_q, n_v) == (799, 65536):
+        assert q_blocks * n_split >= 120
+
+
+def test_weight_cache_reused_and_rebuilt():
+    """The cache builds once for the same tensors and again after one of
+    them is modified in place, replaced, or the extra key changes."""
+    ws = [torch.randn(4, 4, 3) for _ in range(3)]
+    cache, calls = rb.WeightCache(), []
+
+    def build():
+        calls.append(1)
+        return sum(w.sum() for w in ws)
+
+    first = cache.get(ws, "key", build)
+    assert cache.get(ws, "key", build) is first and cache.builds == 1
+    ws[1].add_(1.0)                                  # in place: _version moves
+    second = cache.get(ws, "key", build)
+    assert cache.builds == 2 and second is not first
+    ws[2] = ws[2].clone()                            # another tensor
+    cache.get(ws, "key", build)
+    cache.get(ws, "other", build)                    # another layout asked for
+    assert cache.builds == 4 == len(calls)
+    cache.get(ws, "other", build)
+    assert cache.builds == 4
+
+
+def test_resblock_folds_and_packs_once_for_inference():
+    """With gradients off a ResBlock folds its weight norm once, a second
+    call reuses the folded weights and the packed chain made from them, and
+    a changed parameter rebuilds both; with gradients on nothing is cached
+    (the folded weights carry the graph)."""
+    from rvc_tpu_torch.models.commons import ResBlock
+
+    torch.manual_seed(0)
+    blk = ResBlock(32, 3, DIL)
+    with torch.no_grad():
+        for p in blk.parameters():
+            p.copy_(torch.randn_like(p) * 0.1)
+        a = blk.chain_weights()
+        b = blk.chain_weights()
+        assert blk._folded.builds == 1
+        assert all(x is y for pa, pb in zip(a, b) for x, y in zip(pa, pb))
+        pack = lambda cw: blk.packed.get(
+            [t for part in cw for t in part], ("chain", 32),
+            lambda: rb.pack_chain(*cw, 32))
+        p1, p2 = pack(a), pack(blk.chain_weights())
+        assert p1 is p2 and blk.packed.builds == 1
+        blk.convs1[0].weight_g.mul_(2.0)
+        c = blk.chain_weights()
+        assert blk._folded.builds == 2 and c[0][0] is not a[0][0]
+        assert torch.allclose(c[0][0], 2.0 * a[0][0])
+        assert pack(c) is not p1 and blk.packed.builds == 2
+        x = torch.randn(1, 32, 200)
+        assert torch.equal(blk(x), rb.resblock_chain_plain(x, *c, DIL))
+    w = blk.chain_weights()
+    assert blk._folded.builds == 2 and w[0][0].requires_grad
 
 
 def test_wrappers_reject_bad_input_before_launch():
