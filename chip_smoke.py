@@ -4,7 +4,9 @@
 
 Phases, in this order, each printing one JSON line:
   env      card name and power limit, torch / CUDA / nvcc / triton versions
-  build    compile the CUDA kernels from ``rvc_tpu_torch/csrc`` (nvcc)
+  build    compile the CUDA kernels from ``rvc_tpu_torch/csrc`` (nvcc) and
+           read ``ptxas -v``: registers and spills of every kernel, and no
+           note that ``wgmma`` products were serialised (C7518-C7520)
   small    a small fp32 model on the card (kernels) against the same model
            on the CPU (plain versions)
   pipeline full-width 48 kHz bf16 conversion of 10 s of audio through
@@ -14,10 +16,12 @@ Phases, in this order, each printing one JSON line:
   stream   ``voice_conversion_fused_stream`` over 4 requests, with the
            launch counts of that run
   kernels  hold each kernel against its plain PyTorch version at the shapes
-           the pipeline recorded (bf16 and f32) and at a few shapes off the
-           path (K2 at C=512 and at a padded C=48, K3 at k=3 and at a
-           compressed index), with stated tolerances, and time the kernel,
-           the plain version and one library call
+           the pipeline recorded (bf16 and f32) and at shapes off the path
+           (K1 in bf16 and f32 at batch 2, T = 1, 77, one tile +- 1, 9001,
+           C = 16 and a padded C = 48, two chains with two dilations; K2 at
+           C=512 and at a padded C=48; K3 at k=3 and at a compressed index),
+           with stated tolerances, and time the kernel, the plain version
+           and one library call
   stages   device time of each stage of one conversion (CUDA events)
   trace    (only when asked for) one conversion under torch.profiler:
            device busy time, idle share, the heaviest kernels
@@ -32,8 +36,10 @@ the result line. There is no CPU fallback: without CUDA the script fails.
 
 from __future__ import annotations
 
+import collections
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -51,8 +57,20 @@ EXTRA_KNN_N = 10000        # a k-means-compressed index, checked beside the path
 # `kernels` phase takes them from the pipeline's own run)
 UNIT_SHAPES = [("stage", 256, 19176, "bfloat16", (3, 7, 11), (1, 3, 5)),
                ("stage", 128, 191760, "bfloat16", (3, 7, 11), (1, 3, 5)),
+               ("stage", 64, 383520, "bfloat16", (3, 7, 11), (1, 3, 5)),
+               ("stage", 32, 767040, "bfloat16", (3, 7, 11), (1, 3, 5)),
                ("knn", 799, 65536, 768, 8)]
-# off the path: (C, T, kernel size) for K2 in f32, (Q, N, D, k) for K3
+# off the path: (batch, C, T, kernel sizes, dilations) for K1 in bf16 and
+# f32 (T = 1, 77, one output tile - 1 and + 1 at each width, an odd T near
+# 9001; C = 48 runs padded to 64), (C, T, kernel size) for K2 in f32,
+# (Q, N, D, k) for K3
+EXTRA_STAGE_SHAPES = [
+    (2, 128, 1, (3, 7, 11), (1, 3, 5)), (2, 64, 77, (3, 7, 11), (1, 3, 5)),
+    (1, 128, 391, (3, 7, 11), (1, 3, 5)), (1, 128, 393, (3, 7, 11), (1, 3, 5)),
+    (1, 64, 903, (3, 7, 11), (1, 3, 5)), (1, 64, 905, (3, 7, 11), (1, 3, 5)),
+    (2, 32, 903, (3, 7, 11), (1, 3, 5)), (2, 32, 9001, (3, 7, 11), (1, 3, 5)),
+    (2, 48, 9001, (3, 7), (1, 3)), (1, 16, 1929, (3, 7, 11), (1, 3, 5)),
+    (2, 16, 9001, (3, 7), (1, 3))]
 EXTRA_CHAIN_SHAPES = [(512, 4099, 7), (48, 3000, 11)]
 EXTRA_KNN_SHAPES = [(799, EXTRA_KNN_N, 768, 8), (301, 5003, 256, 3)]
 
@@ -123,9 +141,23 @@ def phase_build():
 
     t0 = time.perf_counter()
     _build.build()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    seconds = time.perf_counter() - t0
+    ptxas, serialised = {}, []
+    for name in _build.SOURCES:
+        log = _build.build_log(name)
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(n) for n in re.findall(r"(\d+) bytes spill stores", log)]
+        notes = collections.Counter(re.findall(r"C75\d\d", log))
+        ptxas[name] = {"registers": regs, "spill_store_bytes": spills,
+                       "notes": dict(notes)}
+        # "Potential Performance Loss: wgmma.mma_async instructions are
+        # serialized": C7518 and C7520 (C7519 only reports a fence the
+        # compiler added where plain code writes the accumulators)
+        serialised += [f"{name}.cu: {n}" for n in notes if n in ("C7518", "C7520")]
+    emit({"phase": "build", "seconds": seconds, "ptxas": ptxas,
           "libraries": sorted(os.path.basename(p) for p in
                               os.listdir(_build.BUILD_DIR) if p.endswith(".so"))})
+    require(not serialised, f"ptxas serialised wgmma products: {serialised}")
 
 
 def _rand_chain(gen, c, k, device, dil):
@@ -276,6 +308,25 @@ def phase_kernels(shapes):
                                 [(3 * flops, PEAK_TF32)]), on_path)
         del chains, x32
 
+    for b, c, t, ks, dil in EXTRA_STAGE_SHAPES:  # K1 off the path
+        chains = [_rand_chain(gen, c, k, dev, dil) for k in ks]
+        x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, cache = x32.to(dtype), rb.WeightCache()
+            flops = 2.0 * sum(2 * len(dil) * k * c * c * t * b for k in ks)
+            wbytes = sum(2 * len(dil) * k * c * c for k in ks) * x.element_size()
+            check("mrf_stage", {"B": b, "C": c, "T": t, "ks": list(ks),
+                                "dil": list(dil), "dtype": str(dtype).split(".")[-1]},
+                  lambda: rb.mrf_stage(x, chains, ks, dil, cache=cache),
+                  lambda: rb.mrf_stage_plain(x, chains, dil),
+                  lambda: [_library_chain(x, ch, dil) for ch in chains],
+                  lambda: rb.mrf_stage_plain(x, chains, dil),
+                  2e-2 if dtype == torch.bfloat16 else 1e-4,
+                  bound(2 * x.numel() * x.element_size() + wbytes,
+                        [(flops, PEAK_BF16)] if dtype == torch.bfloat16
+                        else [(3 * flops, PEAK_TF32)]), False)
+        del chains, x32
+
     dil = (1, 3, 5)
     for c, t, k in EXTRA_CHAIN_SHAPES:  # K2 off the path, f32
         ch = _rand_chain(gen, c, k, dev, dil)
@@ -416,7 +467,8 @@ def phase_small_reference():
           "max_abs_err_vs_cpu_plain": err, "tol": 1e-3, "launches": counts})
     require(outs["cpu"].shape == outs["cuda"].shape, "small model: shapes differ")
     require(err <= 1e-3, f"small model: card vs CPU plain max abs err {err} > 1e-3")
-    require(counts["mrf_stage"] > 0 and counts["knn_topk"] > 0,
+    # an fp32 model: its stage tails keep f32 precision through K2's kernel
+    require(counts["resblock_chain"] > 0 and counts["knn_topk"] > 0,
             "small model: kernels not launched")
 
 

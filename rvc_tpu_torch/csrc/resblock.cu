@@ -1,82 +1,120 @@
 // HiFi-GAN decoder stage tails on Hopper: kernel K1 `mrf_stage`. (K2
-// `resblock_chain`, the one-chain kernel of the wide stages, is
+// `resblock_chain`, the one-chain f32 kernel of the wide stages, is
 // resblock_chain.cu.)
 //
 // Replaces the TPU kernel rvc_tpu/ops/resblock_pallas.py fused_mrf
 // (_fused_mrf_impl, pallas_call at :437): the mean over the parallel
-// ResBlock chains of one decoder stage. A chain is, per dilation d: m = conv_d(leaky(y)); y = y + conv_1(leaky(m)),
-// with values outside [0, T) zeroed after every conv, as the direct convs'
-// zero padding requires.
+// ResBlock chains of one decoder stage. A chain is, per dilation d:
+//   m = mask * (b1 + conv_d(leaky(y)));  y = mask * (y + b2 + conv_1(leaky(m))),
+// bf16 x bf16 -> f32 products, the state y and every sum in f32; mask zeroes
+// the rows outside [0, T) after every conv, as the direct convs' zero
+// padding requires.
 //
-// What bounds it on the card: operations. A stage of three chains runs
-// 2 * 126 * C^2 * T FLOP (about 1.7e12 over the four stages of one 10 s
-// 48 kHz conversion) against 2 bytes in and 2 bytes out per sample and
-// channel in bf16: hundreds of FLOP per byte, far above the ridge.
+// What bounds it on the card: operations. A stage of three chains
+// (k = 3, 7, 11, three dilations) runs 2 * 126 * C^2 * T FLOP (1.4e12 over
+// the three stages of one 10 s 48 kHz conversion: 1.4 ms at 989 TFLOP/s
+// bf16) against 2 bytes in and 2 bytes out per sample and channel. The
+// weights are small (K * C^2 * 2 bytes a conv, 4.1 MB a stage at C = 128)
+// but every block needs all of them, so what a block pulls from L2 per row
+// it computes is the second thing the design watches.
 //
-// What the design does about it: each block owns one time tile of one
-// batch row, loads the tile plus the chain's halo (60 samples a side for
-// k = 11, d = 1, 3, 5) into shared memory once, runs every conv of every
-// chain out of shared memory, and writes the stage output once: device
-// memory sees one read and one write of the signal instead of 12 per chain.
-// Each conv computes only the rows later convs still need (the halo shrinks
-// conv by conv), as a GEMM of (rows x K*C_in) by (K*C_in x C_out) on the
-// tensor cores with mma.sync (no wgmma, no TMA). The operand precision is
-// a template parameter:
+// What the design does about it. Time is the M side of the product (64
+// rows a warpgroup product) and C_out the N side (N = C: 16, 32, 64, 128),
+// wgmma m64nNk16 with both operands from shared memory:
 //
-//   bf16    mma.sync.m16n8k16, bf16 x bf16 -> f32: exactly the TPU kernel's
-//           dot (K1 on bf16 input, the serving path). The state y stays f32;
-//           the activated conv1 output m is kept as a bf16 operand.
-//   3xTF32  mma.sync.m16n8k8: each f32 operand v is split into
-//           big = tf32(v) and small = tf32(v - big), and every product is
-//           big*big + big*small + small*big, about 21 bits of each product
-//           (the dropped small*small term is below f32's rounding). K1 on f32
-//           input.
+//   activations: two bf16 planes [time][channel] in wgmma.cuh's layout (a)
+//     (16-byte depth groups of 8 channels). A1 holds leaky(y), A2 holds
+//     leaky(m). A conv tap is a row offset of the descriptor's start
+//     address, so one plane serves all K taps; 32 guard rows above and
+//     below take the taps that reach past the block's rows (so no tap may
+//     reach further: k = 11, d = 5 reaches 25).
+//   state: y lives in REGISTERS, as conv_1's accumulator. Two consumer
+//     warpgroups own 256 / C bands of 64 rows each (128 f32 registers a
+//     thread at every width), so a block holds R = 32768 / C rows: 256 at
+//     C = 128, 512 at 64, 1024 at 32. Shared memory then holds only the two
+//     planes and the weight ring; an f32 copy of y beside them would cut R
+//     to 160 rows at C = 128. conv_1 starts from y + b2 and leaves the new y
+//     in place; its epilogue masks y and writes bf16(leaky(y)) to A1.
+//     conv_d accumulates into 64 more registers, two passes of 128 / C
+//     bands each, and its epilogue writes bf16(leaky(m)) to A2: leaky and
+//     the rounding happen once per element. The consumers run at 240
+//     registers (setmaxnreg; the producer's warpgroup gives its own up), and
+//     their code is kept free of anything else that lives long: ptxas
+//     spills accumulators at the least excuse.
+//   clusters: every conv computes all rows of the buffer; the rows within
+//     `halo` of its ends (60 for k = 11, d = 1, 3, 5) come out wrong and are
+//     not stored. One block alone would store 136 of 256 rows at C = 128.
+//     So the 2 blocks of a cluster (C = 128, 64) hold consecutive runs of
+//     rows of ONE buffer of 2 R rows, and after each conv one thread of
+//     the producer's warpgroup sends the block's first and last 32 rows of
+//     the plane just written into the neighbours' guard rows (bulk copies
+//     through distributed shared memory that complete on the neighbour's
+//     mbarrier: see ConvBarrier). A cluster computes 1.31x / 1.13x the rows
+//     it stores at C = 128 / 64, the lone block at C = 32 1.13x.
+//   weights: packed by the wrapper as ready shared-memory images, per conv
+//     [tap][C_in / 8][C_out][8] bf16 (K-major as the product reads them),
+//     streamed in 16 KB ring stages (half a tap at C = 128, 2 taps at 64,
+//     8 at 32) by one producer thread, one cp.async.bulk + mbarrier each,
+//     4 or 5 stages in flight, and read by both consumer warpgroups: a
+//     block fetches each conv_1 once and each conv_d twice (once per pass),
+//     6.2 MB a work item at C = 128, and the stream hides under the
+//     products.
+//   blocks are persistent: as many clusters as the card holds walk over
+//     the (batch, tile) work items, so the weight stream runs ahead across
+//     tiles, and the sum over chains waits in a per-block f32 scratch
+//     (thread-private, coalesced, 128 KB a block: it stays in L2) while the
+//     next chain uses the registers.
+//   x is read and the output written straight from the accumulator
+//     fragments ([C, T] with T contiguous: 8 lanes cover 8 neighbouring
+//     time steps of one channel); all of a chain's loads are issued before
+//     the first is used.
 //
-// Shared memory holds y (f32, rows padded so the fragment loads hit distinct
-// banks) and m (bf16 or f32). A warp computes 32 rows x 8*NT channels at a
-// time. The tile is 32 rows per warp row of the last conv, so that conv's
-// outputs map one to one onto the 8 warps and the sum over chains stays in
-// registers. The weights are packed by the wrapper in B-fragment order, so a
-// warp reads each fragment with one coalesced load per lane (from L2, shared
-// by the block's warps through L1). Channels are padded by the wrapper to
-// 16, 32 or a multiple of 64.
+// Layout: x and out are [B, C, T] contiguous, bf16. Weights are ordered
+// chain-major, conv_d then conv_1 per dilation; biases f32 [n_convs][C].
 //
-// Layout: x and out are [B, C, T] (contiguous), f32 or bf16. Weights are
-// ordered chain-major, conv1 then conv2 per dilation; biases f32
-// [n_convs][C].
+// Ablation switches, for timing only (rvc_tpu_torch/tools/mrf_ablation.py;
+// the results are wrong with any of them): -DMRF_ABLATE_PRODUCTS issues no
+// wgmma, -DMRF_ABLATE_COPIES copies no weights (the barriers still cycle),
+// -DMRF_ABLATE_EPILOGUE skips the masks, leaky and plane stores after each
+// conv, -DMRF_ABLATE_IO reads no x and writes no output or scratch
+// (-DMRF_ABLATE_LOAD, _SCRATCH, _STORE: each of the three alone;
+// -DMRF_ABLATE_RELOAD reads x for a tile's first chain only).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "wgmma.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kWM = 32;  // rows per warp item (two m16 tiles)
+using namespace hopper;
+
+constexpr int kConsumers = 256;  // two warpgroups
+constexpr int kThreads = 384;    // and the producer's warpgroup
+constexpr int kStageBytes = 16384;
+constexpr int kMaxStages = 8;
+constexpr int kGuard = 32;  // guard rows above and below each plane
 constexpr int kMaxChains = 4;
 constexpr int kMaxDil = 4;
 
 struct Args {
-  int channels, length, tile, halo, n_chains, n_dil;
+  const __nv_bfloat16* x;
+  __nv_bfloat16* out;
+  const unsigned char* w;  // packed weight images, conv after conv
+  const float* bias;       // [n_convs][C]
+  float* scratch;          // [grid][128][256] f32: the sum over chains
+  int batch, length, n_tiles;
+  int cluster;             // blocks of a cluster
+  int tile, halo, stages;  // tile: rows the CLUSTER stores per work item
+  int n_chains, n_dil;
   int ks[kMaxChains];
   int dil[kMaxDil];
   float slope;
-  int ldy;  // floats per row of the state y
-  int ldm;  // elements per row of the operand buffer m
 };
 
 __device__ __forceinline__ float leaky(float v, float slope) {
   return v >= 0.f ? v : v * slope;
-}
-
-__device__ __forceinline__ float load_value(const float* p) { return *p; }
-__device__ __forceinline__ float load_value(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-__device__ __forceinline__ void store_value(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_value(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -84,323 +122,488 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// No memory clobber: the planes are written and read by asm only (the
+// consumers' barrier orders them), and global loads may move across.
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v));
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
+// The barrier after a conv, and the exchange of edge rows in a cluster.
+// The blocks of a cluster hold consecutive runs of rows of one buffer, and
+// a conv's taps reach up to kGuard rows into the neighbours' rows: after a
+// conv has written a plane, each block's first and last kGuard rows must be
+// in its neighbours' guard rows before the next conv starts. One thread of
+// the producer's warpgroup (the "exchange thread") does that with bulk
+// copies through distributed shared memory, so the consumers' code holds
+// no access to a neighbour (a store into a neighbour's shared memory from
+// the consumers makes ptxas serialise every wgmma of the kernel, C7520, and
+// loads cost registers that are not there):
+//
+//   written[i] (8 arrivals): every consumer warp arrives when its rows of
+//     the plane are written (and fenced for the async proxy).
+//   ready[i] (9 arrivals + bytes): the consumer warps arrive here too, and
+//     wait here. The exchange thread arrives once with the bytes the
+//     neighbours will send (kGuard rows x C x 2 each), waits for
+//     written[i], and sends this block's edge rows, one 512-byte copy per
+//     depth group and neighbour, to complete on the neighbour's ready[i].
+//
+// i alternates between two pairs of barriers, so that a neighbour one conv
+// ahead counts on the other pair. All a consumer thread keeps is the count
+// of barriers passed.
+struct ConvBarrier {
+  uint32_t count;
 
-__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
-                                           uint32_t& small) {
-  big = to_tf32(v);
-  small = to_tf32(v - __uint_as_float(big));
-}
-
-__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Per precision: the operand buffer's element, the packed B fragment of one
-// lane, and the k extent of one mma.
-template <bool BF16>
-struct Ops {
-  using M = __nv_bfloat16;  // m16n8k16: lane holds 4 bf16 of the B fragment
-  using W = uint2;
-  static constexpr int kK = 16;
+  // bars: shared address of written[0], written[1], ready[0], ready[1]
+  __device__ __forceinline__ void sync(uint32_t bars, int lane) {
+    fence_async_proxy();  // this thread's plane writes -> wgmma, bulk copies
+    __syncwarp();
+    const uint32_t i = 8 * (count & 1);
+    // lane 0 arrives, under a predicate: no branch between the products
+    mbar_arrive_if(bars + i, lane == 0);
+    mbar_arrive_if(bars + 16 + i, lane == 0);
+    mbar_wait_cluster(bars + 16 + i, (count >> 1) & 1);
+    ++count;
+  }
 };
-template <>
-struct Ops<false> {
-  using M = float;  // m16n8k8 (tf32): lane holds 2 f32 of the B fragment
-  using W = float2;
-  static constexpr int kK = 8;
-};
 
-// One conv over buffer rows [lo, hi).
-//   CONV1: m[r] = leaky(mask * (b + conv_d(leaky(y))))
-//   else : y[r] = mask * (y[r] + b + conv_1(m)); with FINAL the result is
-//          added to the per-thread chain sum instead of stored.
-// w: this conv's weights, [K][C/kK][C/8][32 lanes] B fragments.
-template <bool BF16, int NT, bool CONV1, bool FINAL>
-__device__ void conv(float* ys, typename Ops<BF16>::M* ms,
-                     const typename Ops<BF16>::W* __restrict__ w,
-                     const float* __restrict__ b, int K, int d, int lo, int hi,
-                     int g0, const Args& a, float (&sum)[2][NT][4]) {
-  using W = typename Ops<BF16>::W;
-  constexpr int kK = Ops<BF16>::kK;
-  const int C = a.channels;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int gr = lane / 4, q = lane % 4;
-  const int ncg = C / (NT * 8);
-  const int items = (hi - lo + kWM - 1) / kWM * ncg;
-  const int n_kc = C / kK, n_nt = C / 8;
-  const int center = (K - 1) / 2;
-  for (int item = warp; item < items; item += kWarps) {
-    const int r0 = lo + (item / ncg) * kWM;
-    const int n0 = (item % ncg) * NT * 8;
-    float acc[2][NT][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-    int rr[2][2];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-        rr[mt][h] = min(r0 + mt * 16 + h * 8 + gr, hi - 1);
-
-    for (int k = 0; k < K; ++k) {
-      const int off = (k - center) * d;
-      const W* wk = w + ((size_t)k * n_kc * n_nt + n0 / 8) * 32 + lane;
-#pragma unroll(BF16 ? 2 : 1)
-      for (int kc = 0; kc < n_kc; ++kc) {
-        if constexpr (BF16) {
-          // A: rows (gr, gr+8), c_in 16 kc + (2q, 2q+1, 2q+8, 2q+9)
-          uint2 bv[NT];
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            bv[nt] = __ldg(wk + ((size_t)kc * n_nt + nt) * 32);
-          const int c0 = kc * 16 + 2 * q;
-          uint32_t af[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            if (CONV1) {
-              const float* p0 = ys + (rr[mt][0] + off) * a.ldy + c0;
-              const float* p1 = ys + (rr[mt][1] + off) * a.ldy + c0;
-              const float2 v00 = *reinterpret_cast<const float2*>(p0);
-              const float2 v10 = *reinterpret_cast<const float2*>(p1);
-              const float2 v01 = *reinterpret_cast<const float2*>(p0 + 8);
-              const float2 v11 = *reinterpret_cast<const float2*>(p1 + 8);
-              af[mt][0] = pack_bf16(leaky(v00.x, a.slope), leaky(v00.y, a.slope));
-              af[mt][1] = pack_bf16(leaky(v10.x, a.slope), leaky(v10.y, a.slope));
-              af[mt][2] = pack_bf16(leaky(v01.x, a.slope), leaky(v01.y, a.slope));
-              af[mt][3] = pack_bf16(leaky(v11.x, a.slope), leaky(v11.y, a.slope));
-            } else {
-              const __nv_bfloat16* p0 = ms + (rr[mt][0] + off) * a.ldm + c0;
-              const __nv_bfloat16* p1 = ms + (rr[mt][1] + off) * a.ldm + c0;
-              af[mt][0] = *reinterpret_cast<const uint32_t*>(p0);
-              af[mt][1] = *reinterpret_cast<const uint32_t*>(p1);
-              af[mt][2] = *reinterpret_cast<const uint32_t*>(p0 + 8);
-              af[mt][3] = *reinterpret_cast<const uint32_t*>(p1 + 8);
-            }
-          }
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            mma16816(acc[0][nt], af[0], bv[nt].x, bv[nt].y);
-            mma16816(acc[1][nt], af[1], bv[nt].x, bv[nt].y);
-          }
-        } else {
-          // A: rows (gr, gr+8), c_in 8 kc + (q, q+4)
-          uint32_t bb[NT][2], bs[NT][2];
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt) {
-            const float2 v = __ldg(wk + ((size_t)kc * n_nt + nt) * 32);
-            split_tf32(v.x, bb[nt][0], bs[nt][0]);
-            split_tf32(v.y, bb[nt][1], bs[nt][1]);
-          }
-          const int c0 = kc * 8 + q;
-          const float* src = CONV1 ? ys : ms;
-          const int ld = CONV1 ? a.ldy : a.ldm;
-          uint32_t ab[2][4], as[2][4];
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            const float* p0 = src + (rr[mt][0] + off) * ld + c0;
-            const float* p1 = src + (rr[mt][1] + off) * ld + c0;
-            float v[4] = {p0[0], p1[0], p0[4], p1[4]};
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              if (CONV1) v[e] = leaky(v[e], a.slope);
-              split_tf32(v[e], ab[mt][e], as[mt][e]);
-            }
-          }
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int mt = 0; mt < 2; ++mt) {
-              mma1688(acc[mt][nt], as[mt], bb[nt][0], bb[nt][1]);
-              mma1688(acc[mt][nt], ab[mt], bs[nt][0], bs[nt][1]);
-              mma1688(acc[mt][nt], ab[mt], bb[nt][0], bb[nt][1]);
-            }
-        }
-      }
+// Position in the weight ring, kept alike by the producer and by every
+// consumer warp.
+struct Ring {
+  int stage;
+  uint32_t phase;
+  __device__ __forceinline__ void next(int stages) {
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
     }
+  }
+};
 
+// Ablation only: a use of the accumulators that costs one add each, so
+// that the products whose epilogue is compiled out are not dropped.
+template <int N>
+__device__ __forceinline__ void keep_alive(const float (&d)[N], uint32_t addr) {
+  float sum = 0.f;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+  for (int i = 0; i < N; ++i) sum += d[i];
+  if (sum == 1.2345e30f) st_shared(addr, 0);
+}
+
+// A store under a predicate and not under a branch: the accumulators are
+// read in straight-line code.
+__device__ __forceinline__ void store_if(__nv_bfloat16* p, float v, int ok) {
+  const __nv_bfloat16 b = __float2bfloat16(v);
+  asm volatile("{\n.reg .pred q;\nsetp.ne.b32 q, %2, 0;\n@q st.global.b16 [%0], %1;\n}\n" ::"l"(p),
+               "h"(*reinterpret_cast<const unsigned short*>(&b)), "r"(ok)
+               : "memory");
+}
+
+// The chain's start: y = x on the thread's rows (zero outside [0, T)) and
+// A1 = bf16(leaky(y)). x: the batch row's channel 2 * qd; g0: the time of
+// the thread's row 0; slot: the thread's 4 bytes in its row 0, depth group
+// 0 of A1.
+// No branch defines the accumulators: a clamped load, then a select.
+template <int C>
+__device__ __forceinline__ void load_state(float (&y)[256 / C][C / 2],
+                                           const __nv_bfloat16* x, int T, int g0,
+                                           uint32_t slot, float slope) {
+  constexpr uint32_t rows16 = (32768 / C + 2 * kGuard) * 16;
+  // every load is issued before the first value is used
+#pragma unroll
+  for (int j = 0; j < C / 8; ++j) {
+    const __nv_bfloat16* x0 = x + (size_t)(8 * j) * T;
+    const __nv_bfloat16* x1 = x0 + T;
+#pragma unroll
+    for (int lb = 0; lb < 256 / C; ++lb)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int row = r0 + mt * 16 + h * 8 + gr;
-        if (row >= hi) continue;
-        const int g = g0 + row;
-        const bool inside = g >= 0 && g < a.length;
+        const int t = g0 + 128 * lb + 8 * h;
+        const bool inside = t >= 0 && t < T;
+        const int tc = min(max(t, 0), T - 1);
+        y[lb][4 * j + 2 * h] = inside ? __bfloat162float(x0[tc]) : 0.f;
+        y[lb][4 * j + 2 * h + 1] = inside ? __bfloat162float(x1[tc]) : 0.f;
+      }
+  }
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int col = n0 + nt * 8 + 2 * q;
-          const float v0 = acc[mt][nt][2 * h] + b[col];
-          const float v1 = acc[mt][nt][2 * h + 1] + b[col + 1];
-          if (CONV1) {
-            const float m0 = leaky(inside ? v0 : 0.f, a.slope);
-            const float m1 = leaky(inside ? v1 : 0.f, a.slope);
-            if constexpr (BF16)
-              *reinterpret_cast<uint32_t*>(ms + row * a.ldm + col) =
-                  pack_bf16(m0, m1);
-            else
-              *reinterpret_cast<float2*>(ms + row * a.ldm + col) =
-                  make_float2(m0, m1);
-          } else {
-            float2* p = reinterpret_cast<float2*>(ys + row * a.ldy + col);
-            const float2 y = *p;
-            const float2 y2 = make_float2(inside ? y.x + v0 : 0.f,
-                                          inside ? y.y + v1 : 0.f);
-            if (FINAL) {
-              sum[mt][nt][2 * h] += y2.x;
-              sum[mt][nt][2 * h + 1] += y2.y;
-            } else {
-              *p = y2;
-            }
+  for (int lb = 0; lb < 256 / C; ++lb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+        st_shared(slot + j * rows16 + (128 * lb + 8 * h) * 16,
+                  pack_bf16(leaky(y[lb][4 * j + 2 * h], slope),
+                            leaky(y[lb][4 * j + 2 * h + 1], slope)));
+}
+
+// out = y * inv on the thread's rows [r_lo, r_hi) that lie before T.
+template <int C>
+__device__ __forceinline__ void store_mean(const float (&y)[256 / C][C / 2],
+                                           __nv_bfloat16* out, int T, int g0, int r_lo,
+                                           int r_hi, float inv) {
+#pragma unroll
+  for (int lb = 0; lb < 256 / C; ++lb)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = 128 * lb + 8 * h;
+      const int t = g0 + r;
+      const int ok = r >= r_lo && r < r_hi && t < T;
+#pragma unroll
+      for (int j = 0; j < C / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          store_if(out + (size_t)(8 * j + e) * T + t, y[lb][4 * j + 2 * h + e] * inv, ok);
+    }
+}
+
+// acc[g] += conv over NB bands of 64 rows, 128 rows apart: for every tap
+// and 16-channel depth step one product per band, the weights from the ring
+// as their 16 KB stages arrive. a_desc: the plane at the first band's first
+// row, tap offset 0, depth step 0.
+template <int C, int NB>
+__device__ __forceinline__ void conv_products(
+    float (&acc)[NB][C / 2], uint64_t a_desc, int K, int d,
+    unsigned char* ring_buf, uint64_t* full, uint64_t* empty, int stages,
+    Ring& ring, int lane) {
+  constexpr int kSteps = C / 16;           // depth steps per tap
+  constexpr int kUnit = 32 * C;            // bytes of one (tap, depth step)
+  constexpr int kUnits = kStageBytes / kUnit;
+  constexpr int rows = 32768 / C + 2 * kGuard;  // of a plane
+  const int hk = K / 2;
+  const int n_units = K * kSteps;
+  int prev = -1;
+  for (int u0 = 0; u0 < n_units; u0 += kUnits) {
+    mbar_wait(&full[ring.stage], ring.phase);
+    const int n_u = min(kUnits, n_units - u0);
+    const uint64_t b_desc = operand_desc(ring_buf + ring.stage * kStageBytes, C);
+    wgmma_fence();
+    for (int u = 0; u < n_u; ++u) {
+      const int unit = u0 + u;
+      const int tap = unit / kSteps, kc = unit % kSteps;
+      // in 16-byte rows: two depth groups per step, the tap's row offset
+      const int off = 2 * kc * rows + (tap - hk) * d;
+      const uint64_t bd = b_desc + (uint64_t)(u * (kUnit >> 4));
+#ifndef MRF_ABLATE_PRODUCTS
+#pragma unroll
+      for (int g = 0; g < NB; ++g)
+        wgmma_bf16(acc[g], a_desc + (uint64_t)(int64_t)(off + 128 * g), bd);
+#endif
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous stage's products are done: free it
+    if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
+    prev = ring.stage;
+    ring.next(stages);
+  }
+  wgmma_wait<0>();
+  if (lane == 0) mbar_arrive(&empty[prev]);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kThreads, 1) stage_kernel(const Args a) {
+  constexpr int NREG = C / 2;        // accumulator registers of one band
+  constexpr int BANDS = 256 / C;     // bands of 64 rows per warpgroup
+  constexpr int GB = 128 / C;        // bands per conv_d pass
+  constexpr int R = 2 * BANDS * 64;  // rows of the block's buffer
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr int rows = R + 2 * kGuard;
+  constexpr int plane = rows * C * 2;
+  unsigned char* a1 = smem;
+  unsigned char* ring_buf = smem + 2 * plane;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring_buf + a.stages * kStageBytes);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* conv_bars = empty + kMaxStages;  // written[2], ready[2]: ConvBarrier
+  uint64_t* leave = conv_bars + 4;           // neighbours are done with this block
+
+  const int tid = threadIdx.x;
+  const int S = a.stages;
+  const int n_work = a.batch * a.n_tiles;
+  // the grid is 1-D and so are its clusters: rank and size from blockIdx and
+  // an argument, which the compiler knows to be uniform over the block
+  const int n_ranks = a.cluster, rank = blockIdx.x % n_ranks;
+  const int first_work = blockIdx.x / n_ranks, work_step = gridDim.x / n_ranks;
+  const bool has_up = rank > 0, has_dn = rank < n_ranks - 1;
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers / 32);
+    }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&conv_bars[i], kConsumers / 32);
+      mbar_init(&conv_bars[2 + i], kConsumers / 32 + 1);
+    }
+    mbar_init(leave, max(1, has_up + has_dn));
+    mbar_init_fence();
+  }
+  // the guard rows stay zero for the block's life
+  for (int i = tid; i < 2 * plane / 16; i += kThreads)
+    reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
+  fence_async_proxy();
+  cluster_sync();  // barriers and zeroed planes are there before a neighbour writes
+
+  if (tid >= kConsumers) {
+    // ---- producer: the weight stream, the same for every work item ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (tid == kConsumers) {
+      Ring ring = {0, 0};
+      for (int w = first_work; w < n_work; w += work_step) {
+        const unsigned char* wp = a.w;
+        for (int chain = 0; chain < a.n_chains; ++chain) {
+          const int conv_bytes = a.ks[chain] * C * C * 2;
+          for (int cv = 0; cv < 2 * a.n_dil; ++cv) {
+            const int passes = (cv & 1) ? 1 : 2;  // conv_d: once per pass
+            for (int p = 0; p < passes; ++p)
+              for (int o = 0; o < conv_bytes; o += kStageBytes) {
+                const int bytes = min(kStageBytes, conv_bytes - o);
+                mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+#ifndef MRF_ABLATE_COPIES
+                mbar_arrive_expect_tx(&full[ring.stage], bytes);
+                bulk_copy(ring_buf + ring.stage * kStageBytes, wp + o, bytes,
+                          &full[ring.stage]);
+#else
+                mbar_arrive(&full[ring.stage]);
+#endif
+                ring.next(S);
+              }
+            wp += conv_bytes;
           }
         }
       }
-  }
-}
-
-// The mean over a.n_chains chains, summed in registers; needs
-// tile == kWM * kWarps / (C / (8 * NT)).
-template <bool BF16, typename T, int NT>
-__global__ void __launch_bounds__(kThreads, 1)
-stage_kernel(const T* __restrict__ x, T* __restrict__ out,
-             const typename Ops<BF16>::W* __restrict__ w,
-             const float* __restrict__ b, Args a) {
-  using M = typename Ops<BF16>::M;
-  extern __shared__ float4 smem[];
-  const int C = a.channels, T_len = a.length;
-  const int rows_total = a.tile + 2 * a.halo;
-  float* ys = reinterpret_cast<float*>(smem);
-  M* ms = reinterpret_cast<M*>(ys + (size_t)rows_total * a.ldy);
-  const int t0 = blockIdx.x * a.tile;
-  const int g0 = t0 - a.halo;  // global time of buffer row 0
-  const T* xb = x + (size_t)blockIdx.y * C * T_len;
-  T* ob = out + (size_t)blockIdx.y * C * T_len;
-
-  float sum[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sum[mt][nt][e] = 0.f;
-
-  // K * C * C weights per conv, 4 (bf16) or 2 (f32) in each fragment entry
-  const typename Ops<BF16>::W* wc = w;
-  const float* bc = b;
-  for (int chain = 0; chain < a.n_chains; ++chain) {
-    const int K = a.ks[chain];
-    const int hk = (K - 1) / 2;
-    const size_t conv_frags = (size_t)K * C * C / (BF16 ? 4 : 2);
-    int rem = 0;
-    for (int i = 0; i < a.n_dil; ++i) rem += hk * (a.dil[i] + 1);
-    // load the rows this chain reads, zero outside [0, T)
-    const int lo = a.halo - rem;
-    const int n_rows = a.tile + 2 * rem;
-    for (int idx = threadIdx.x; idx < n_rows * C; idx += kThreads) {
-      const int r = lo + idx % n_rows;
-      const int c = idx / n_rows;
-      const int g = g0 + r;
-      ys[r * a.ldy + c] =
-          (g >= 0 && g < T_len) ? load_value(xb + (size_t)c * T_len + g) : 0.f;
+    } else if (tid == kConsumers + 32) {
+      // ---- exchange thread: the edge rows, after every conv but a chain's last ----
+      const uint32_t bars = smem_addr(conv_bars);
+      const int incoming = (has_up + has_dn) * kGuard * C * 2;
+      uint32_t count = 0;
+      for (int w = first_work; w < n_work; w += work_step)
+        for (int chain = 0; chain < a.n_chains; ++chain)
+          for (int cv = 0; cv < 2 * a.n_dil; ++cv, ++count) {
+            // the chain's start and every conv_1 but the last write A1,
+            // every conv_d writes A2
+            const uint32_t p = smem_addr(a1) + (cv & 1) * plane;
+            const uint32_t i = 8 * (count & 1);
+            mbar_arrive_expect_tx(&conv_bars[2 + (count & 1)], incoming);
+            mbar_wait_cluster(bars + i, (count >> 1) & 1);
+            for (int j = 0; j < C / 8; ++j) {
+              // rows 0..kGuard-1 -> the guard rows below the previous block's
+              // rows; rows R-kGuard..R-1 -> the guard rows above the next one's
+              const uint32_t first = p + (j * rows + kGuard) * 16;
+              if (has_up)
+                bulk_copy_to_cluster(map_to_rank(first + R * 16, rank - 1), first,
+                                     kGuard * 16, map_to_rank(bars + 16 + i, rank - 1));
+              if (has_dn)
+                bulk_copy_to_cluster(map_to_rank(first - kGuard * 16, rank + 1),
+                                     first + (R - kGuard) * 16, kGuard * 16,
+                                     map_to_rank(bars + 16 + i, rank + 1));
+            }
+          }
+      // no block leaves while a neighbour may still copy into it or be read
+      // by its copies: each neighbour says so once its consumers have passed
+      // their last barrier (the copies sent to it have landed by then)
+      if (count) mbar_wait_cluster(bars + 16 + 8 * ((count - 1) & 1), ((count - 1) >> 1) & 1);
+      if (has_up) mbar_arrive_cluster(map_to_rank(smem_addr(leave), rank - 1));
+      if (has_dn) mbar_arrive_cluster(map_to_rank(smem_addr(leave), rank + 1));
+      if (has_up || has_dn) mbar_wait_cluster(smem_addr(leave), 0);
     }
-    __syncthreads();
-    for (int i = 0; i < a.n_dil; ++i) {
-      rem -= hk * a.dil[i];
-      conv<BF16, NT, true, false>(ys, ms, wc, bc, K, a.dil[i], a.halo - rem,
-                                  a.halo + a.tile + rem, g0, a, sum);
-      __syncthreads();
-      wc += conv_frags;
-      bc += C;
-      rem -= hk;
-      if (i == a.n_dil - 1)
-        conv<BF16, NT, false, true>(ys, ms, wc, bc, K, 1, a.halo - rem,
-                                    a.halo + a.tile + rem, g0, a, sum);
-      else
-        conv<BF16, NT, false, false>(ys, ms, wc, bc, K, 1, a.halo - rem,
-                                     a.halo + a.tile + rem, g0, a, sum);
-      __syncthreads();
-      wc += conv_frags;
-      bc += C;
-    }
-  }
+  } else {
+    // ---- consumers ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int wg = tid / 128;
+    const int warp = (tid % 128) / 32, lane = tid % 32;
+    const int gr = lane / 4, qd = lane % 4;
+    const int T = a.length;
+    const float slope = a.slope;
+    // row of (band lb, half h): 128 * lb + 8 * h + r_lane;
+    // channel of (j, e): 8 * j + 2 * qd + e; register 4 * j + 2 * h + e
+    const int r_lane = 64 * wg + 16 * warp + gr;
+    // the thread's 4-byte slot in row r, depth group j of a plane:
+    // (j * rows + guard + r) * 16 + 4 * qd
+    constexpr uint32_t rows16 = rows * 16;
+    const uint32_t slot = smem_addr(a1) + (kGuard + r_lane) * 16 + 4 * qd;
+    ConvBarrier conv_bar = {0};
+    const uint32_t bars = smem_addr(conv_bars);
+    const uint64_t a1_desc = operand_desc(a1 + (kGuard + 64 * wg) * 16, rows);
+    const uint64_t a2_desc = a1_desc + (uint64_t)(plane >> 4);
+    float* scratch = a.scratch + (size_t)blockIdx.x * (BANDS * NREG * kConsumers) + tid;
+    Ring ring = {0, 0};
+    float y[BANDS][NREG];
 
-  {
-    // the mean over chains, staged through y's rows for a coalesced store
-    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-    const int ncg = C / (NT * 8);
-    const int r0 = a.halo + (warp / ncg) * kWM;
-    const int n0 = (warp % ncg) * NT * 8;
-    const float inv = 1.f / (float)a.n_chains;
+    for (int w = first_work; w < n_work; w += work_step) {
+      const int bi = w / a.n_tiles, ti = w - bi * a.n_tiles;
+      // time of the thread's row 0: the cluster's buffer starts `halo` rows
+      // before its tile, this block's rows R * rank further on
+      const int g0 = ti * a.tile - a.halo + R * rank + r_lane;
+      const float* bias = a.bias;
+
+      for (int chain = 0; chain < a.n_chains; ++chain) {
+        const int K = a.ks[chain];
+        // y = x on the block's rows (zero outside [0, T)); A1 = leaky(y)
+        size_t io_off = (size_t)bi * C * T + (size_t)(2 * qd) * T;
+        asm volatile("" : "+l"(io_off));  // addresses are made here, chain by chain
+#if !defined(MRF_ABLATE_IO) && !defined(MRF_ABLATE_LOAD)
+#ifdef MRF_ABLATE_RELOAD
+        if (chain > 0) {
+        } else
+#endif
+        load_state<C>(y, a.x + io_off, T, g0, slot, slope);
+#else
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+        for (int lb = 0; lb < BANDS; ++lb)
 #pragma unroll
-      for (int h = 0; h < 2; ++h)
+          for (int i = 0; i < NREG; ++i) y[lb][i] = 0.f;
+#endif
+        conv_bar.sync(bars, lane);
+
+        for (int di = 0; di < a.n_dil; ++di) {
+          // conv_d: A2 = leaky(mask * (b1 + conv_d(A1))), GB bands a pass
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int row = r0 + mt * 16 + h * 8 + lane / 4;
-          const int col = n0 + nt * 8 + 2 * (lane % 4);
-          *reinterpret_cast<float2*>(ys + row * a.ldy + col) = make_float2(
-              sum[mt][nt][2 * h] * inv, sum[mt][nt][2 * h + 1] * inv);
+          for (int p = 0; p < BANDS / GB; ++p) {
+            float acc[GB][NREG];
+#pragma unroll
+            for (int j = 0; j < C / 8; ++j) {
+              const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * qd);
+#pragma unroll
+              for (int g = 0; g < GB; ++g) {
+                acc[g][4 * j] = acc[g][4 * j + 2] = bv.x;
+                acc[g][4 * j + 1] = acc[g][4 * j + 3] = bv.y;
+              }
+            }
+#pragma unroll
+            for (int g = 0; g < GB; ++g) acc_fence(acc[g]);
+            conv_products<C, GB>(acc, a1_desc + (uint64_t)(128 * GB * p), K,
+                                 a.dil[di], ring_buf, full, empty, S, ring, lane);
+#pragma unroll
+            for (int g = 0; g < GB; ++g) {
+              acc_fence(acc[g]);
+#ifdef MRF_ABLATE_EPILOGUE
+              keep_alive(acc[g], slot);
+#else
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const int r = 128 * (GB * p + g) + 8 * h;
+                const int t = g0 + r;
+                const bool inside = t >= 0 && t < T;
+#pragma unroll
+                for (int j = 0; j < C / 8; ++j) {
+                  const float m0 = inside ? acc[g][4 * j + 2 * h] : 0.f;
+                  const float m1 = inside ? acc[g][4 * j + 2 * h + 1] : 0.f;
+                  st_shared(slot + plane + j * rows16 + r * 16,
+                            pack_bf16(leaky(m0, slope), leaky(m1, slope)));
+                }
+              }
+#endif
+            }
+          }
+          bias += C;
+          conv_bar.sync(bars, lane);
+
+          // conv_1: y = mask * (y + b2 + conv_1(A2)); A1 = leaky(y)
+#pragma unroll
+          for (int j = 0; j < C / 8; ++j) {
+            const float2 bv = *reinterpret_cast<const float2*>(bias + 8 * j + 2 * qd);
+#pragma unroll
+            for (int lb = 0; lb < BANDS; ++lb) {
+              y[lb][4 * j] += bv.x;
+              y[lb][4 * j + 2] += bv.x;
+              y[lb][4 * j + 1] += bv.y;
+              y[lb][4 * j + 3] += bv.y;
+            }
+          }
+#pragma unroll
+          for (int lb = 0; lb < BANDS; ++lb) acc_fence(y[lb]);
+          conv_products<C, BANDS>(y, a2_desc, K, 1, ring_buf, full, empty, S,
+                                  ring, lane);
+          bias += C;
+          const bool last = di == a.n_dil - 1;
+#pragma unroll
+          for (int lb = 0; lb < BANDS; ++lb) {
+            acc_fence(y[lb]);
+#ifdef MRF_ABLATE_EPILOGUE
+            keep_alive(y[lb], slot);
+#else
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = 128 * lb + 8 * h;
+              const int t = g0 + r;
+              const bool inside = t >= 0 && t < T;
+#pragma unroll
+              for (int j = 0; j < C / 8; ++j) {
+                const float y0 = inside ? y[lb][4 * j + 2 * h] : 0.f;
+                const float y1 = inside ? y[lb][4 * j + 2 * h + 1] : 0.f;
+                y[lb][4 * j + 2 * h] = y0;
+                y[lb][4 * j + 2 * h + 1] = y1;
+                if (!last)
+                  st_shared(slot + j * rows16 + r * 16,
+                            pack_bf16(leaky(y0, slope), leaky(y1, slope)));
+              }
+            }
+#endif
+          }
+          // the last conv_1 of a chain wrote no plane: the next chain's
+          // load is followed by its own barrier
+          if (!last) conv_bar.sync(bars, lane);
         }
-    __syncthreads();
-  }
-  for (int idx = threadIdx.x; idx < a.tile * C; idx += kThreads) {
-    const int r = idx % a.tile;
-    const int c = idx / a.tile;
-    if (t0 + r < T_len)
-      store_value(ob + (size_t)c * T_len + t0 + r, ys[(a.halo + r) * a.ldy + c]);
+
+#if !defined(MRF_ABLATE_IO) && !defined(MRF_ABLATE_SCRATCH)
+        // the sum over chains waits in the block's scratch
+        if (chain > 0) {
+#pragma unroll
+          for (int lb = 0; lb < BANDS; ++lb)
+#pragma unroll
+            for (int i = 0; i < NREG; ++i)
+              y[lb][i] += scratch[(lb * NREG + i) * kConsumers];
+        }
+        if (chain < a.n_chains - 1) {
+#pragma unroll
+          for (int lb = 0; lb < BANDS; ++lb)
+#pragma unroll
+            for (int i = 0; i < NREG; ++i)
+              scratch[(lb * NREG + i) * kConsumers] = y[lb][i];
+        }
+#endif
+      }
+
+#if !defined(MRF_ABLATE_IO) && !defined(MRF_ABLATE_STORE)
+      // the mean, on the rows of the output tile
+      size_t io_off = (size_t)bi * C * T + (size_t)(2 * qd) * T;
+      // the tile in the thread's rows
+      const int r_lo = a.halo - R * rank - r_lane, r_hi = r_lo + a.tile;
+      const float inv = 1.f / (float)a.n_chains;
+      store_mean<C>(y, a.out + io_off, T, g0, r_lo, r_hi, inv);
+#endif
+    }
   }
 }
 
-template <bool BF16, typename T, int NT>
-cudaError_t launch(const void* x, void* out, const void* w, const float* b,
-                   int batch, const Args& a, cudaStream_t stream) {
-  const size_t smem = (size_t)(a.tile + 2 * a.halo) *
-                      (sizeof(float) * a.ldy +
-                       sizeof(typename Ops<BF16>::M) * a.ldm);
-  auto kernel = stage_kernel<BF16, T, NT>;
+template <int C>
+cudaError_t launch(const Args& a, int cluster, int max_blocks, cudaStream_t stream) {
+  const int rows = 32768 / C + 2 * kGuard;
+  const int smem =
+      2 * rows * C * 2 + a.stages * kStageBytes + (2 * kMaxStages + 5) * 8;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      stage_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.length + a.tile - 1) / a.tile, batch);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<T*>(out),
-      static_cast<const typename Ops<BF16>::W*>(w), b, a);
-  return cudaGetLastError();
-}
-
-template <bool BF16, typename T>
-cudaError_t launch_nt(int nt, const void* x, void* out, const void* w,
-                      const float* b, int batch, const Args& a,
-                      cudaStream_t stream) {
-  switch (nt) {
-    case 8: return launch<BF16, T, 8>(x, out, w, b, batch, a, stream);
-    case 4: return launch<BF16, T, 4>(x, out, w, b, batch, a, stream);
-    case 2: return launch<BF16, T, 2>(x, out, w, b, batch, a, stream);
-    default: return cudaErrorInvalidValue;
-  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  // clusters the current device holds at once: asked at every launch
+  // (microseconds on the host), so nothing is remembered across devices or
+  // threads
+  int resident = 0;
+  err = cudaOccupancyMaxActiveClusters(&resident, stage_kernel<C>, &cfg);
+  if (err != cudaSuccess) return err;
+  const int n_work = a.batch * a.n_tiles;
+  const int n_clusters = min(min(n_work, resident), max_blocks / cluster);
+  if (n_clusters < 1) return cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3(n_clusters * cluster);
+  return cudaLaunchKernelEx(&cfg, stage_kernel<C>, a);
 }
 
 }  // namespace
@@ -408,42 +611,57 @@ cudaError_t launch_nt(int nt, const void* x, void* out, const void* w,
 extern "C" {
 
 // One decoder stage tail on x [B, C, T] -> out: the mean over n_chains
-// chains of kernel sizes ks; tile must be 32 * 8 / (C / (8 * nt)) rows.
-// bf16: x and out bf16 and bf16 dot operands; else f32 I/O and 3xTF32.
-// nt in {2, 4, 8}: channel tiles of 8 per warp item; C a multiple of 8 * nt
-// and of 16. w: B fragments packed by the wrapper
-// (ops/resblock.py:_pack_fragments); b f32 [n_convs][C].
-int rvc_resblock_stage(const void* x, void* out, const void* w, const float* b,
-                       int batch, int channels, int length, int tile, int nt,
-                       int n_chains, const int* ks, int n_dil, const int* dil,
-                       float slope, int bf16, void* stream) {
+// chains of kernel sizes ks, each over the dilations dil. C is 16, 32, 64
+// or 128 (the wrapper pads). x and out are bf16. w: the weight images
+// packed by ops/resblock.py:pack_stage; bias f32 [n_convs][C]; scratch f32
+// [max_blocks][128][256]. cluster, tile, halo, stages: from
+// ops/resblock.py:stage_plan (a cluster's 1 or 2 blocks share a buffer of
+// cluster * 32768 / C rows and store tile = that - 2 * halo rows; no tap
+// reaches over 32 rows; stages 16 KB ring stages). The launch is
+// of persistent blocks: as many clusters as the card holds at once, at most
+// max_blocks blocks.
+int rvc_mrf_stage(const void* x, void* out, const void* w, const float* bias,
+                  float* scratch, int batch, int channels, int length,
+                  int cluster, int tile, int halo, int stages, int n_chains,
+                  const int* ks, int n_dil, const int* dil, float slope,
+                  int max_blocks, void* stream) {
   if (n_chains < 1 || n_chains > kMaxChains || n_dil < 1 || n_dil > kMaxDil ||
-      (nt != 2 && nt != 4 && nt != 8) || channels % (8 * nt) != 0 ||
-      channels % 16 != 0 || tile < 1 || length < 1 || batch < 1)
-    return (int)cudaErrorInvalidValue;
-  if (tile * (channels / (8 * nt)) != kWM * kWarps)
+      batch < 1 || length < 1 || tile < 1 || halo < 0 || max_blocks < 1 ||
+      stages < 2 || stages > kMaxStages || cluster < 1 || cluster > 2 ||
+      (channels != 16 && channels != 32 && channels != 64 && channels != 128) ||
+      tile + 2 * halo > cluster * (32768 / channels))
     return (int)cudaErrorInvalidValue;
   Args a;
-  a.channels = channels;
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.w = static_cast<const unsigned char*>(w);
+  a.bias = bias;
+  a.scratch = scratch;
+  a.batch = batch;
   a.length = length;
+  a.n_tiles = (length + tile - 1) / tile;
+  a.cluster = cluster;
   a.tile = tile;
+  a.halo = halo;
+  a.stages = stages;
   a.n_chains = n_chains;
   a.n_dil = n_dil;
   a.slope = slope;
-  a.halo = 0;
   for (int c = 0; c < kMaxChains; ++c) a.ks[c] = c < n_chains ? ks[c] : 1;
   for (int i = 0; i < kMaxDil; ++i) a.dil[i] = i < n_dil ? dil[i] : 1;
   for (int c = 0; c < n_chains; ++c) {
-    int h = 0;
-    for (int i = 0; i < n_dil; ++i) h += (ks[c] - 1) / 2 * (dil[i] + 1);
-    if (h > a.halo) a.halo = h;
+    if (ks[c] < 1 || ks[c] % 2 == 0) return (int)cudaErrorInvalidValue;
+    for (int i = 0; i < n_dil; ++i)
+      if (dil[i] < 1 || ks[c] / 2 * dil[i] > kGuard)
+        return (int)cudaErrorInvalidValue;
   }
-  // rows padded so the fragment loads of a warp hit distinct banks
-  a.ldy = channels + (bf16 ? 8 : 4);
-  a.ldm = a.ldy;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(bf16 ? launch_nt<true, __nv_bfloat16>(nt, x, out, w, b, batch, a, st)
-                    : launch_nt<false, float>(nt, x, out, w, b, batch, a, st));
+  switch (channels) {
+    case 16: return (int)launch<16>(a, cluster, max_blocks, st);
+    case 32: return (int)launch<32>(a, cluster, max_blocks, st);
+    case 64: return (int)launch<64>(a, cluster, max_blocks, st);
+    default: return (int)launch<128>(a, cluster, max_blocks, st);
+  }
 }
 
 }  // extern "C"

@@ -1,14 +1,14 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
-// mbarriers, bulk and TMA copies into shared memory, shared-memory matrix
-// descriptors and the warpgroup products wgmma m64nNk8 on tf32 operands, and
-// the 3xTF32 operand split.
+// mbarriers, thread block clusters, bulk and TMA copies into shared memory,
+// shared-memory matrix descriptors, the warpgroup products wgmma m64nNk8 on
+// tf32 and m64nNk16 on bf16 operands, and the 3xTF32 operand split.
 //
-// Operand layouts. Both operands of a tf32 wgmma are K-major (the depth is
+// Operand layouts. Both operands of a wgmma are K-major here (the depth is
 // contiguous). Two layouts are used:
 //
-// (a) Without swizzle (resblock_chain.cu). The tile is cut into 16-byte
-//     depth groups (4 floats), and one group holds all rows of the tile,
-//     16 bytes per row:
+// (a) Without swizzle (resblock_chain.cu in tf32, resblock.cu in bf16). The
+//     tile is cut into 16-byte depth groups (4 floats or 8 bf16), and one
+//     group holds all rows of the tile, 16 bytes per row; for tf32:
 //       byte offset of (row, depth) = ((depth / 4) * rows + row) * 16 + (depth % 4) * 4
 //     An 8-row x 16-byte core matrix is then 128 contiguous bytes at any
 //     row, so a tile may start at any row (a conv tap is a row offset), rows
@@ -73,6 +73,16 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, int bytes) 
                : "memory");
 }
 
+// Where `ok` is not 0 (a predicate, no branch): arrive on the barrier at
+// shared address `addr`.
+__device__ __forceinline__ void mbar_arrive_if(uint32_t addr, int ok) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %1, 0;\n"
+      "@q mbarrier.arrive.shared::cta.b64 _, [%0];\n}\n" ::"r"(addr),
+      "r"(ok)
+      : "memory");
+}
+
 // Wait until the barrier's phase differs from `parity`. A wait that lasts
 // over about two seconds is a protocol error: trap instead of hanging.
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
@@ -96,6 +106,62 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 // to the async proxy that wgmma reads operands through.
 __device__ __forceinline__ void fence_async_proxy() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- thread block clusters ----------------------------------------------
+
+// Every thread of every block of the cluster (a lone block is a cluster of
+// one), with release / acquire ordering of what they wrote before.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The address, in the cluster's shared window, of this block's shared
+// address `addr` in the block of rank `rank`.
+__device__ __forceinline__ uint32_t map_to_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// Arrive on an mbarrier of any block of the cluster (address from
+// map_to_rank), releasing this thread's earlier writes to the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t cluster_addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   cluster_addr)
+               : "memory");
+}
+
+// `bytes` contiguous bytes of this block's shared memory into the shared
+// memory of a block of the cluster by the bulk-copy engine (both 16-byte
+// aligned, bytes a multiple of 16; dst and bar: addresses from
+// map_to_rank); completion is counted on the mbarrier `bar` over there.
+__device__ __forceinline__ void bulk_copy_to_cluster(uint32_t dst, uint32_t src, int bytes,
+                                                     uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "r"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// mbar_wait on this block's barrier at shared address `addr`, acquiring
+// what threads and copies of the cluster released.
+__device__ __forceinline__ void mbar_wait_cluster(uint32_t addr, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > 4000000000LL) __trap();
+  }
 }
 
 // ---- copies into shared memory ------------------------------------------
@@ -321,6 +387,90 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[88], uint64_t a,
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
       : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// d (64 x N, f32) += a (64 x 16) * b^T (N x 16), both operands bf16 and
+// K-major from shared memory, for N = 16, 32, 64 and 128: the accumulator
+// has N / 2 registers a thread, laid out as for the tf32 products above.
+__device__ __forceinline__ void wgmma_bf16(float (&d)[8], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[16], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[32], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_bf16(float (&d)[64], uint64_t a,
+                                           uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
 }
 
 // One depth step (8 floats = 2 depth groups) of a 3xTF32 product:

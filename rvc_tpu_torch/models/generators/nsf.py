@@ -2,8 +2,8 @@
 
 A sine excitation at the output rate is injected, through strided noise
 convs, after every transposed-conv upsample. Each stage tail runs through
-the hand-written kernels of ``ops/resblock.py``: stages with C <= 128 as
-one ``mrf_stage`` launch (all chains at once), wider stages as
+the hand-written kernels of ``ops/resblock.py``: stages with C <= 128
+through ``mrf_stage`` (in bf16 one launch for all chains), wider stages as
 ``resblock_chain`` per chain, which at the 48 kHz serving shapes is the
 split the JAX gates make (K1 for C = 128, 64, 32; K2 for C = 256). The
 kernels' packed weights are cached (per stage for K1, per chain for K2), so

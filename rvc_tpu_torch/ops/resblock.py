@@ -10,10 +10,18 @@ weights in torch layout [C_out, C_in, K], one per dilation, and biases [C];
 each wrapper packs them for its kernel, and keeps the packed weights in the
 ``WeightCache`` the caller hands it, so that a module packs once.
 
-K1 (``csrc/resblock.cu``, C <= 128) runs every chain of a stage in one
-``mma.sync`` launch, bf16 products on bf16 input and 3xTF32 on f32 input.
+K1 (``csrc/resblock.cu``, C <= 128, bf16 input) runs every chain of a stage
+in one launch of persistent blocks: ``wgmma`` bf16 products with time on the
+M side, the f32 state in registers as conv_1's accumulator, two bf16
+activation planes in shared memory and the weights streamed through a ring
+of 16 KB stages (``stage_plan`` / ``pack_stage``). Its bound is operations
+at 989 TFLOP/s bf16. A block computes 32768 / C rows; the blocks of a
+cluster share one buffer (they exchange their edge rows after every conv),
+which stores 2 * halo rows fewer than it computes; a block fetches each
+conv_1 once and each conv_d twice from L2.
 K2 (``csrc/resblock_chain.cu``, wide stages) runs a chain as two launches
-of one ``wgmma`` 3xTF32 conv kernel per dilation.
+of one ``wgmma`` 3xTF32 conv kernel per dilation; an f32 stage of
+``mrf_stage`` runs its chains through K2 as well, then takes the mean.
 Forward only: the backward for training comes with the training port.
 """
 
@@ -27,11 +35,28 @@ import torch.nn.functional as F
 
 from ..device import H100_SMS
 
-# shared memory a block may use on Hopper (232,448 bytes); K1's warps and
-# the rows of one warp item
+# shared memory a block may use on Hopper (232,448 bytes) and the registers
+# of an SM
 SMEM_LIMIT = 232_448
-WARPS = 8
-WARP_ROWS = 32
+SM_REGISTERS = 65_536
+# K1: channels it is built for; rows x channels of a block's buffer (two
+# consumer warpgroups, 128 state registers a thread); bytes of a weight ring
+# stage and the ring's greatest depth; threads and registers (setmaxnreg)
+# of the consumers and of the producer's warpgroup; a consumer's registers
+# for the state and for conv_d's sums
+MRF_CHANNELS = (16, 32, 64, 128)
+MRF_BLOCK_ELEMS = 32_768
+MRF_STAGE_BYTES = 16_384
+MRF_MAX_STAGES = 8
+MRF_CONSUMERS, MRF_CONSUMER_REGS = 256, 240
+MRF_PRODUCERS, MRF_PRODUCER_REGS = 128, 24
+MRF_STATE_REGS, MRF_ACC_REGS = 128, 64
+# blocks of a cluster that share one buffer, by channels the kernel runs at,
+# and the guard rows above and below each block's planes: the most a tap may
+# reach past a block's end
+MRF_CLUSTER = {16: 1, 32: 1, 64: 2, 128: 2}
+MRF_GUARD = 32
+MRF_MAX_CHAINS = MRF_MAX_DILATIONS = 4
 # K2's conv kernel: the time tiles it is built for, output channels per
 # block, input channels per depth chunk, bytes of one weight ring stage (two
 # planes)
@@ -105,24 +130,59 @@ def padded_channels(channels: int) -> int:
     return -(-channels // 64) * 64
 
 
-def plan(channels: int, kernel_sizes: Sequence[int], dilations: Sequence[int],
-         ops_bf16: bool) -> Tuple[int, int]:
-    """K1's (nt, tile) of one launch, or (0, 0) when the buffers do not fit
-    shared memory. nt: 8-channel tiles per warp item; tile: output rows per
-    block. Each buffer row holds the f32 state and the conv1 operand (bf16
-    or f32), padded by 8 (bf16) or 4 (f32) channels. The tile is 32 rows per
-    warp row of the last conv, so the sum over chains stays in registers;
-    the widest nt whose tile fits."""
+class StagePlan(NamedTuple):
+    """K1's geometry for one stage: channels it runs at, blocks of a
+    cluster, rows of a block's buffer, rows at each end of the cluster's
+    buffer that are computed but not stored, output rows per cluster, weight
+    ring stages, shared-memory bytes, accumulator registers a consumer
+    thread."""
+    cp: int
+    cluster: int
+    rows: int
+    halo: int
+    tile: int
+    stages: int
+    smem: int
+    regs: int
+
+
+def stage_plan(channels: int, kernel_sizes: Sequence[int],
+               dilations: Sequence[int]) -> StagePlan:
+    """K1's plan, or ValueError where the stage does not fit the kernel.
+
+    A block's two consumer warpgroups keep the f32 state of 32768 / cp rows
+    in 128 registers a thread (bands of 64 rows, cp / 2 registers each) and
+    conv_d's sums in 64 more. The blocks of a cluster hold consecutive rows
+    of one buffer and write the 32 rows at their ends into their
+    neighbours' guard rows, so no tap may reach further than that. Every
+    conv computes all rows; a chain spoils ``halo`` rows at each end of the
+    buffer, so a cluster stores cluster * rows - 2 * halo. Shared memory
+    holds two bf16 planes of rows + 2 * 32 rows, the ring of 16 KB weight
+    stages and the barriers."""
+    if channels > MRF_CHANNELS[-1]:
+        raise ValueError(f"mrf_stage: C={channels} is over {MRF_CHANNELS[-1]} "
+                         "channels: wide stages run per chain (resblock_chain)")
+    if any(k < 1 or k % 2 == 0 for k in kernel_sizes) or any(d < 1 for d in dilations):
+        raise ValueError("mrf_stage: kernel sizes must be odd, dilations >= 1")
+    if not (1 <= len(kernel_sizes) <= MRF_MAX_CHAINS
+            and 1 <= len(dilations) <= MRF_MAX_DILATIONS):
+        raise ValueError(f"mrf_stage: 1..{MRF_MAX_CHAINS} chains of "
+                         f"1..{MRF_MAX_DILATIONS} dilations")
     cp = padded_channels(channels)
-    row_bytes = (cp + 8) * 6 if ops_bf16 else (cp + 4) * 8
+    rows = MRF_BLOCK_ELEMS // cp
     halo = _halo(kernel_sizes, dilations)
-    for nt in (8, 4, 2):
-        ncg = cp // (8 * nt)
-        if cp % (8 * nt) == 0 and WARPS % ncg == 0:
-            tile = WARPS * WARP_ROWS // ncg
-            if (tile + 2 * halo) * row_bytes <= SMEM_LIMIT:
-                return nt, tile
-    return 0, 0
+    reach = max(kernel_sizes) // 2 * max(dilations)
+    cluster = MRF_CLUSTER[cp]
+    tile = cluster * rows - 2 * halo
+    fixed = 2 * (rows + 2 * MRF_GUARD) * cp * 2 + (2 * MRF_MAX_STAGES + 5) * 8
+    stages = min(MRF_MAX_STAGES, (SMEM_LIMIT - fixed) // MRF_STAGE_BYTES)
+    if tile < 1 or stages < 2 or reach > MRF_GUARD:
+        raise ValueError(f"mrf_stage: kernel sizes {tuple(kernel_sizes)} with "
+                         f"dilations {tuple(dilations)} do not fit {cluster} "
+                         f"blocks of {rows} rows at C={cp}")
+    return StagePlan(cp, cluster, rows, halo, tile, stages,
+                     fixed + stages * MRF_STAGE_BYTES,
+                     MRF_STATE_REGS + MRF_ACC_REGS)
 
 
 def conv_tile(length: int, blocks_per_tile: int) -> int:
@@ -179,26 +239,15 @@ def _pad_weights(ws, bs, cp: int):
             [F.pad(bi, (0, cp - c)) for bi in bs])
 
 
-def _pack_fragments(ws, ops_bf16: bool) -> torch.Tensor:
-    """[C_out, C_in, K] conv weights -> the B fragments of one lane each,
-    per conv [K][C_in/kk][C_out/8][32 lanes][e]; lane 4g + q holds
-    c_out = 8 nt + g and
-      bf16 (``mma.sync.m16n8k16``, kk = 16, e = 4): c_in = 16 kc + (2q,
-        2q+1, 2q+8, 2q+9), as bf16;
-      f32 (``mma.sync.m16n8k8`` tf32, kk = 8, e = 2): c_in = 8 kc + (q, q+4).
-    """
-    packed = []
-    for w in ws:
-        c_out, c_in, k = w.shape
-        wt = w.float().permute(2, 1, 0)                    # [K, C_in, C_out]
-        if ops_bf16:
-            wt = wt.reshape(k, c_in // 16, 2, 4, 2, c_out // 8, 8)  # k kc h q p nt g
-            packed.append(wt.permute(0, 1, 5, 6, 3, 2, 4).reshape(-1))
-        else:
-            wt = wt.reshape(k, c_in // 8, 2, 4, c_out // 8, 8)  # k kc h q nt g
-            packed.append(wt.permute(0, 1, 4, 5, 3, 2).reshape(-1))
-    w = torch.cat(packed)
-    return (w.to(torch.bfloat16) if ops_bf16 else w).contiguous()
+def pack_conv_bf16(w: torch.Tensor) -> torch.Tensor:
+    """[C_out, C_in, K] conv weights (C_in a multiple of 8) -> the
+    shared-memory image K1 copies in, flat bf16 [tap][C_in / 8][C_out][8]:
+    per tap the B operand of a ``wgmma``, K-major in 16-byte depth groups of
+    8 input channels. Element ((tap * C_in / 8 + ci // 8) * C_out + co) * 8
+    + ci % 8 is W[co, ci, tap]."""
+    c_out, c_in, k = w.shape
+    wt = w.to(torch.bfloat16).permute(2, 1, 0).reshape(k, c_in // 8, 8, c_out)
+    return wt.permute(0, 1, 3, 2).contiguous().reshape(-1)
 
 
 def split_tf32(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -225,7 +274,8 @@ def pack_conv_tf32(w: torch.Tensor) -> torch.Tensor:
 
 
 class PackedStage(NamedTuple):
-    """K1's weights of one stage: B fragments, biases [n_convs, cp]."""
+    """K1's weights of one stage: the convs' images one after the other
+    (chain-major, conv_d then conv_1 per dilation), biases [n_convs, cp]."""
     w: torch.Tensor
     bias: torch.Tensor
 
@@ -237,7 +287,7 @@ class PackedChain(NamedTuple):
     bias: torch.Tensor
 
 
-def pack_stage(chains, cp: int, ops_bf16: bool) -> PackedStage:
+def pack_stage(chains, cp: int) -> PackedStage:
     ws, bs = [], []
     for (w1s, b1s, w2s, b2s) in chains:
         for w1, b1, w2, b2 in zip(w1s, b1s, w2s, b2s):
@@ -245,7 +295,8 @@ def pack_stage(chains, cp: int, ops_bf16: bool) -> PackedStage:
             bs += [b1.float(), b2.float()]
     if cp != ws[0].shape[0]:
         ws, bs = _pad_weights(ws, bs, cp)
-    return PackedStage(_pack_fragments(ws, ops_bf16), torch.stack(bs).contiguous())
+    return PackedStage(torch.cat([pack_conv_bf16(w) for w in ws]),
+                       torch.stack(bs).contiguous())
 
 
 def pack_chain(w1s, b1s, w2s, b2s, cp: int) -> PackedChain:
@@ -288,13 +339,15 @@ def _typed(lib, fn: str, argtypes):
     return f
 
 
-def _stage_fn():
+def _stage_fn(extra_flags: Tuple[str, ...] = ()):
+    """K1's entry point; ``extra_flags`` name a timing variant of the source
+    (``tools/mrf_ablation.py``), never the port's own build."""
     from ._build import load
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
-    return _typed(load("resblock"), "rvc_resblock_stage",
-                  [p, p, p, p, i, i, i, i, i, i, ip, i, ip, f, i, p])
+    return _typed(load("resblock", extra_flags), "rvc_mrf_stage",
+                  [p, p, p, p, p, i, i, i, i, i, i, i, i, ip, i, ip, f, i, p])
 
 
 def _conv_fn():
@@ -308,36 +361,58 @@ def _conv_fn():
 def mrf_stage(x, chains, kernel_sizes: Sequence[int],
               dilations: Sequence[int], slope: float = 0.1,
               cache: Optional[WeightCache] = None) -> torch.Tensor:
-    """K1: one decoder stage tail, the mean over the parallel chains.
+    """One decoder stage tail, the mean over the parallel chains.
 
     x [B, C, T] f32 or bf16; chains: per chain (w1s, b1s, w2s, b2s). bf16
-    input multiplies bf16 operands into f32, f32 input runs 3xTF32. With a
-    ``cache`` the packed weights are kept between calls."""
+    input is one launch of K1 (bf16 operands into f32 sums). f32 input keeps
+    f32 precision: each chain runs through K2's 3xTF32 conv kernel
+    (``resblock_chain``, which counts its launches) and the mean is taken in
+    f32. With a ``cache`` the packed weights are kept between calls."""
     kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
     if x.device.type == "cpu":
         return mrf_stage_plain(x, chains, dilations, slope)
     _check_input(x, "mrf_stage")
-    b, c, t = x.shape
-    ops_bf16 = x.dtype == torch.bfloat16
-    nt, tile = plan(c, kernel_sizes, dilations, ops_bf16)
-    if not tile:
-        raise ValueError(f"mrf_stage: C={c} does not fit shared memory")
-    cp = padded_channels(c)
-    packed = (cache or WeightCache()).get(
-        _chain_tensors(chains), ("stage", cp, ops_bf16),
-        lambda: pack_stage(chains, cp, ops_bf16))
-    if cp != c:
-        x = F.pad(x, (0, 0, 0, cp - c))
+    cache = cache or WeightCache()
+    if x.dtype == torch.float32:
+        chain_caches = cache.get(_chain_tensors(chains), ("stage_f32", len(chains)),
+                                 lambda: tuple(WeightCache() for _ in chains))
+        acc = None
+        for chain, chain_cache in zip(chains, chain_caches):
+            y = resblock_chain(x, *chain, dilations, slope, cache=chain_cache)
+            acc = y if acc is None else acc.add_(y)
+        return acc.div_(len(chains))
+    c = x.shape[1]
+    plan = stage_plan(c, kernel_sizes, dilations)
+    packed = cache.get(_chain_tensors(chains), ("stage", plan.cp),
+                       lambda: pack_stage(chains, plan.cp))
+    if plan.cp != c:
+        x = F.pad(x, (0, 0, 0, plan.cp - c))
+    out = _launch_stage(_stage_fn(), x, plan, packed, kernel_sizes, dilations, slope)
+    launches["mrf_stage"] += 1
+    return out if plan.cp == c else out[:, :c].contiguous()
+
+
+def _launch_stage(fn, x, plan: StagePlan, packed: PackedStage, kernel_sizes,
+                  dilations, slope: float) -> torch.Tensor:
+    """One launch of K1 (``fn``: ``_stage_fn``'s) on bf16 x [B, plan.cp, T]."""
+    b, _, t = x.shape
     out = torch.empty_like(x)
-    err = _stage_fn()(
+    # persistent blocks, at most one per SM, each with its scratch for the
+    # sum over chains
+    max_blocks = min(plan.cluster * b * -(-t // plan.tile),
+                     torch.cuda.get_device_properties(x.device).multi_processor_count)
+    scratch = torch.empty((max_blocks, MRF_STATE_REGS, MRF_CONSUMERS),
+                          dtype=torch.float32, device=x.device)
+    err = fn(
         x.data_ptr(), out.data_ptr(), packed.w.data_ptr(),
-        packed.bias.data_ptr(), b, cp, t, tile, nt, len(kernel_sizes),
-        _ints(kernel_sizes), len(dilations), _ints(dilations), slope,
-        int(ops_bf16), torch.cuda.current_stream(x.device).cuda_stream)
+        packed.bias.data_ptr(), scratch.data_ptr(), b, plan.cp, t,
+        plan.cluster, plan.tile, plan.halo, plan.stages,
+        len(kernel_sizes), _ints(kernel_sizes), len(dilations),
+        _ints(dilations), slope, max_blocks,
+        torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mrf_stage: CUDA error {err} at launch")
-    launches["mrf_stage"] += 1
-    return out if cp == c else out[:, :c].contiguous()
+    return out
 
 
 def resblock_chain(x, w1s, b1s, w2s, b2s, dilations: Sequence[int],

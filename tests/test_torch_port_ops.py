@@ -13,6 +13,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from rvc_tpu_torch.ops import resblock as rb
 from rvc_tpu_torch.ops import retrieval as rt
@@ -171,70 +172,181 @@ def test_feature_index_roundtrip_and_search(tmp_path):
                        rt.retrieve_blend(feats, torch.from_numpy(vecs), 0.5))
 
 
-@pytest.mark.parametrize("c,ks,ops_bf16,expected", [
-    (32, (3, 7, 11), False, (4, 256)),
-    (64, (3, 7, 11), False, (8, 256)),
-    (128, (3, 7, 11), False, (4, 64)),
-    (256, (11,), False, (0, 0)),     # a C=256 stage does not fit: K2 per chain
+CHAIN_SETS = [((3, 7, 11), (1, 3, 5)), ((3, 7), (1, 3)), ((11,), (1, 3, 5))]
+
+
+@pytest.mark.parametrize("ks,dil", CHAIN_SETS)
+@pytest.mark.parametrize("c", [16, 32, 48, 64, 128])
+def test_stage_plan_fits_the_block(c, ks, dil):
+    """K1's geometry: a block's buffer is 32768 / cp rows (128 f32 state
+    registers a consumer thread), it stores the rows a chain does not spoil,
+    no tap reaches past the 32 guard rows, and the two bf16 planes, a
+    ring of at least two 16 KB weight stages and the barriers fit the
+    232,448 bytes a block may use. The accumulators leave a consumer at
+    least 40 of its 240 registers, and the warpgroups' registers fit the
+    SM's."""
+    p = rb.stage_plan(c, ks, dil)
+    assert p.cp == rb.padded_channels(c) and p.cp in rb.MRF_CHANNELS
+    assert p.rows * p.cp == rb.MRF_BLOCK_ELEMS and p.rows % 128 == 0
+    assert p.halo == max(k // 2 * sum(d + 1 for d in dil) for k in ks)
+    assert p.cluster == rb.MRF_CLUSTER[p.cp] and 1 <= p.cluster <= 2
+    assert p.tile == p.cluster * p.rows - 2 * p.halo and p.tile >= 1
+    # a tap reaches into the neighbour's 32 edge rows at most (whole warps)
+    assert max(k // 2 * d for k in ks for d in (*dil, 1)) <= rb.MRF_GUARD == 32
+    assert 2 <= p.stages <= rb.MRF_MAX_STAGES
+    assert p.smem == (2 * (p.rows + 2 * rb.MRF_GUARD) * p.cp * 2
+                      + p.stages * rb.MRF_STAGE_BYTES
+                      + (2 * rb.MRF_MAX_STAGES + 5) * 8)
+    assert p.smem <= rb.SMEM_LIMIT
+    # one more stage would not fit, or the ring is at its depth
+    assert p.stages == rb.MRF_MAX_STAGES or \
+        p.smem + rb.MRF_STAGE_BYTES > rb.SMEM_LIMIT
+    # the state of 2 warpgroups x (256 / cp) bands of 64 rows: cp / 2
+    # registers a band and thread
+    assert 256 // p.cp * p.cp // 2 == rb.MRF_STATE_REGS
+    assert p.regs == rb.MRF_STATE_REGS + rb.MRF_ACC_REGS
+    assert p.regs + 40 <= rb.MRF_CONSUMER_REGS
+    assert (rb.MRF_CONSUMERS * rb.MRF_CONSUMER_REGS
+            + rb.MRF_PRODUCERS * rb.MRF_PRODUCER_REGS) <= rb.SM_REGISTERS
+
+
+@pytest.mark.parametrize("c,ks,dil", [
+    (256, (3, 7, 11), (1, 3, 5)),    # a wide stage: K2 per chain
+    (128, (11, 11), (9, 27, 27, 27)),  # the chain spoils more rows than the buffer has
+    (32, (3,), (1, 1, 1, 1, 1)),     # more dilations than the kernel takes
+    (32, (11,), (1, 7)),             # a tap reaches 35 rows, over the 32 guard rows
+    (64, (4,), (1,)),                # an even kernel size
 ])
-def test_stage_tile_fits_shared_memory(c, ks, ops_bf16, expected):
-    """K1's geometry in f32 at the 48 kHz stage widths: 32 rows per warp row
-    of the last conv, the widest channel tiling whose buffers fit."""
-    nt, tile = rb.plan(c, ks, DIL, ops_bf16)
-    assert (nt, tile) == expected
-    if tile:
-        assert tile * (c // (8 * nt)) == rb.WARPS * rb.WARP_ROWS
-        assert (tile + 2 * rb._halo(ks, DIL)) * (c + 4) * 8 <= rb.SMEM_LIMIT
+def test_stage_plan_refuses_what_does_not_fit(c, ks, dil):
+    with pytest.raises(ValueError):
+        rb.stage_plan(c, ks, dil)
 
 
 @pytest.mark.parametrize("c", [32, 64, 128])
-def test_pack_fragments_follows_mma_layout(c):
-    """Each lane's four bf16 values are the B-fragment entries of
-    mma.sync.m16n8k16: lane 4g + q holds c_out = 8 nt + g and
-    c_in = 16 kc + (2q, 2q+1, 2q+8, 2q+9)."""
-    k = 3
+def test_pack_conv_bf16_follows_operand_layout(c):
+    """A conv's packed weights are the shared-memory images of wgmma's B
+    operand, tap after tap: bf16 element ((tap * C/8 + ci // 8) * C + co) * 8
+    + ci % 8 is W[co, ci, tap] (K-major, 16-byte depth groups of 8 input
+    channels), so a 16 KB ring stage is a run of whole depth steps."""
+    k = 5
     w = torch.randn((c, c, k), generator=torch.Generator().manual_seed(c))
-    packed = rb._pack_fragments([w], True).float().reshape(k, c // 16, c // 8, 32, 4)
-    wb = w.to(torch.bfloat16).float()
-    tap, kc, nt, lane = 2, c // 16 - 1, c // 8 - 1, 13
-    g, q = lane // 4, lane % 4
-    want = [wb[8 * nt + g, 16 * kc + ci, tap]
-            for ci in (2 * q, 2 * q + 1, 2 * q + 8, 2 * q + 9)]
-    assert packed[tap, kc, nt, lane].tolist() == [float(v) for v in want]
+    packed = rb.pack_conv_bf16(w)
+    assert packed.dtype == torch.bfloat16 and packed.numel() == k * c * c
+    wb = w.to(torch.bfloat16)
+    rng = np.random.default_rng(c)
+    for _ in range(300):
+        tap, ci, co = rng.integers(k), rng.integers(c), rng.integers(c)
+        flat = ((tap * (c // 8) + ci // 8) * c + co) * 8 + ci % 8
+        assert float(packed[flat]) == float(wb[co, ci, tap])
     # every weight lands in exactly one slot
-    assert torch.equal(torch.sort(packed.reshape(-1)).values,
-                       torch.sort(wb.reshape(-1)).values)
+    assert torch.equal(torch.sort(packed.float()).values,
+                       torch.sort(wb.float().reshape(-1)).values)
+    # one (tap, 16-channel depth step) is 32 * C bytes, and a stage holds
+    # a whole number of them
+    assert rb.MRF_STAGE_BYTES % (32 * c) == 0
 
 
-@pytest.mark.parametrize("c,ks,expected", [
-    (128, (3, 7, 11), 128), (64, (3, 7, 11), 256), (32, (3, 7, 11), 256),
-    (256, (3, 7, 11), 0), (48, (3,), 256),
+def test_pack_stage_orders_convs_and_pads():
+    """The stage's stream is chain after chain, conv_d then conv_1 per
+    dilation, each conv K * cp * cp bf16; a 48-channel stage packs at 64
+    with zero weights and biases in the extra channels."""
+    c, cp, ks, dil = 48, 64, (3, 7), (1, 3)
+    rng = np.random.default_rng(12)
+    chains = [_to_torch_chain(_chain_np(rng, c, k, dil)) for k in ks]
+    packed = rb.pack_stage(chains, cp)
+    assert packed.w.numel() == sum(2 * len(dil) * k * cp * cp for k in ks)
+    assert packed.bias.shape == (2 * len(dil) * len(ks), cp)
+    off = 0
+    for ci, ((w1s, b1s, w2s, b2s), k) in enumerate(zip(chains, ks)):
+        for di in range(len(dil)):
+            for j, (w, b) in enumerate(((w1s[di], b1s[di]), (w2s[di], b2s[di]))):
+                img = packed.w[off:off + k * cp * cp].reshape(k, cp // 8, cp, 8)
+                back = img.permute(2, 1, 3, 0).reshape(cp, cp, k).float()
+                assert torch.equal(back[:c, :c], w.to(torch.bfloat16).float())
+                assert not back[c:].any() and not back[:, c:].any()
+                row = packed.bias[(ci * len(dil) + di) * 2 + j]
+                assert torch.equal(row[:c], b) and not row[c:].any()
+                off += k * cp * cp
+
+
+def _mrf_stage_tiled(x, chains, ks, dil, slope=0.1):
+    """K1's tiling in plain torch, f32. Per (batch row, tile) the blocks of
+    a cluster hold consecutive runs of ``rows`` rows of one buffer that
+    starts ``halo`` rows before the tile. Each block keeps a plane of its
+    rows between 32 guard rows; whoever writes a plane also writes its first
+    and last 32 rows into the neighbours' guard rows (the
+    guard rows at the buffer's two ends stay zero). Every conv computes ALL
+    rows of every block from its own plane, the mask zeroes the rows
+    outside [0, T) after every conv, and only rows [halo, halo + tile) of
+    the buffer are stored."""
+    b, c, t = x.shape
+    p = rb.stage_plan(c, ks, dil)
+    n, rows, g = p.cluster, p.rows, rb.MRF_GUARD
+    out = torch.zeros_like(x)
+
+    def write_planes(planes, values):
+        """values[i]: block i's rows -> its plane and the neighbours' guards."""
+        for i, v in enumerate(values):
+            planes[i][:, :, g:g + rows] = v
+            if i > 0:
+                planes[i - 1][:, :, g + rows:] = v[:, :, :g]
+            if i < n - 1:
+                planes[i + 1][:, :, :g] = v[:, :, rows - g:]
+
+    def conv(plane, w, bias, k, d):
+        reach = k // 2 * d
+        assert reach <= g
+        return F.conv1d(plane[:, :, g - reach:g + rows + reach], w, bias, dilation=d)
+
+    leaky = lambda v: torch.where(v >= 0, v, v * slope)
+    for ti in range(-(-t // p.tile)):
+        g0 = ti * p.tile - p.halo
+        times = [torch.arange(g0 + i * rows, g0 + (i + 1) * rows) for i in range(n)]
+        oks = [(tm >= 0) & (tm < t) for tm in times]
+        total = [torch.zeros((b, c, rows)) for _ in range(n)]
+        for (w1s, b1s, w2s, b2s), k in zip(chains, ks):
+            ys = []
+            for tm, ok in zip(times, oks):
+                y = torch.zeros((b, c, rows))
+                y[:, :, ok] = x[:, :, tm[ok]]
+                ys.append(y)
+            a1 = [torch.zeros((b, c, rows + 2 * g)) for _ in range(n)]
+            a2 = [torch.zeros((b, c, rows + 2 * g)) for _ in range(n)]
+            write_planes(a1, [leaky(y) for y in ys])
+            for d, w1, b1, w2, b2 in zip(dil, w1s, b1s, w2s, b2s):
+                ms = [conv(a1[i], w1, b1, k, d) * oks[i].float() for i in range(n)]
+                write_planes(a2, [leaky(m) for m in ms])
+                ys = [(ys[i] + conv(a2[i], w2, b2, k, 1)) * oks[i].float()
+                      for i in range(n)]
+                write_planes(a1, [leaky(y) for y in ys])
+            total = [tot + y for tot, y in zip(total, ys)]
+        whole = torch.cat(total, dim=2) / len(ks)
+        lo, cnt = ti * p.tile, min(p.tile, t - ti * p.tile)
+        out[:, :, lo:lo + cnt] = whole[:, :, p.halo:p.halo + cnt]
+    return out
+
+
+@pytest.mark.parametrize("b,c,t,ks,dil", [
+    (2, 128, 1, (3, 7, 11), DIL), (2, 64, 77, (3, 7, 11), DIL),
+    (1, 128, 391, (3, 7, 11), DIL), (1, 128, 393, (3, 7, 11), DIL),
+    (1, 64, 903, (3, 7, 11), DIL), (1, 64, 905, (3, 7, 11), DIL),
+    (2, 32, 903, (3, 7, 11), DIL), (2, 32, 905, (3, 7, 11), DIL),
+    (2, 16, 9001, (3, 7, 11), DIL), (2, 48, 2001, (3, 7), (1, 3)),
 ])
-def test_tensor_core_tile(c, ks, expected):
-    """K1 in bf16 takes the serving stages at 32 rows per warp row; its
-    buffers (f32 state and bf16 operand rows, padded by 8) fit shared
-    memory. A 48-channel stage runs padded to 64."""
-    nt, tile = rb.plan(c, ks, DIL, True)
-    assert tile == expected
-    if tile:
-        cp = rb.padded_channels(c)
-        assert tile * (cp // (8 * nt)) == rb.WARPS * rb.WARP_ROWS
-        assert (tile + 2 * rb._halo(ks, DIL)) * (cp + 8) * 6 <= rb.SMEM_LIMIT
-
-
-def test_pack_fragments_f32_follows_mma_layout():
-    """mma.sync.m16n8k8 (tf32) B fragments: lane 4g + q holds
-    c_out = 8 nt + g and c_in = 8 kc + (q, q+4), in f32."""
-    c, k = 128, 5
-    w = torch.randn((c, c, k), generator=torch.Generator().manual_seed(5))
-    packed = rb._pack_fragments([w], False).reshape(k, c // 8, c // 8, 32, 2)
-    assert packed.dtype == torch.float32
-    tap, kc, nt, lane = 4, 3, c // 8 - 1, 22
-    g, q = lane // 4, lane % 4
-    assert packed[tap, kc, nt, lane].tolist() == [
-        float(w[8 * nt + g, 8 * kc + q, tap]), float(w[8 * nt + g, 8 * kc + q + 4, tap])]
-    assert torch.equal(torch.sort(packed.reshape(-1)).values,
-                       torch.sort(w.reshape(-1)).values)
+def test_stage_tiling_matches_plain(b, c, t, ks, dil):
+    """Tile by tile with the plan's cluster, halo, rows, guard-row exchange
+    and masks, the stage is the plain stage on the whole signal (f32, 1e-6
+    of the output's magnitude): T = 1, 77, one tile - 1 and + 1 at three
+    widths, an odd T over several tiles, batch 2, a padded width, two chains
+    with two dilations."""
+    assert [rb.stage_plan(w, (3, 7, 11), DIL).tile for w in (128, 64, 32)] == \
+        [392, 904, 904]
+    rng = np.random.default_rng(b * 1000 + c + t)
+    x = torch.from_numpy((rng.normal(size=(b, c, t)) * 0.3).astype(np.float32))
+    chains = [_to_torch_chain(_chain_np(rng, c, k, dil)) for k in ks]
+    ref = rb.mrf_stage_plain(x, chains, dil)
+    out = _mrf_stage_tiled(x, chains, ks, dil)
+    assert _rel(ref.numpy(), out.numpy()) <= 1e-6
 
 
 @pytest.mark.parametrize("k", [3, 7, 11])
