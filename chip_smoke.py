@@ -15,8 +15,21 @@ Phases, in this order, each printing one JSON line:
            shapes the path gives each kernel, the next run the launch counts
   stream   ``voice_conversion_fused_stream`` over 4 requests, with the
            launch counts of that run
+  files    write the user's files in the reference formats from numpy seed 0
+           (a full-width 48 kHz .pth with pitch and one without, a 65536 x 768
+           flat faiss .index, models/predictors/rmvpe.pt, an HF-layout
+           models/embedders/contentvec) into a temporary directory, and read
+           them back through the port's loaders
+  windowed ``python -m rvc_tpu_torch.cli infer`` in-process on 150 s read from
+           a 44.1 kHz stereo WAV: three windows, host f0, wall, realtime
+           factor, device time per window, peak memory
+  batch    ``batch_infer`` on four files (3, 5, 8, 11 s): one device batch of
+           four rows; against the same files one by one; a small fp32 model's
+           batch on the card against the CPU's plain versions
+  nof0     ``infer`` with the model without pitch (plain HiFi-GAN decoder)
   kernels  hold each kernel against its plain PyTorch version at the shapes
-           the pipeline recorded (bf16 and f32) and at shapes off the path
+           every path recorded (bf16 and f32: T up to 3.2 M, batch 4) and at
+           shapes off the path
            (K1 in bf16 and f32 at batch 2, T = 1, 77, one tile +- 1, 9001,
            C = 16 and a padded C = 48, two chains with two dilations; K2 at
            C=512 and at a padded C=48; K3 at k=3 and at a compressed index),
@@ -44,6 +57,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -196,7 +210,7 @@ def _err(ref, out):
 def record_path_shapes(fn):
     """Run fn() with the decoder's stage tails and the retrieval search
     wrapped to record the shapes the main path gives the kernels:
-    [("stage", C, T, dtype, kernel sizes, dilations)] and
+    [("stage", C, T, dtype, kernel sizes, dilations, batch)] and
     [("knn", Q, N, D, k)]."""
     from rvc_tpu_torch.models.generators import nsf
     from rvc_tpu_torch.ops import retrieval as rt
@@ -207,7 +221,7 @@ def record_path_shapes(fn):
     def stage_hook(x, blocks, cache=None):
         shapes.append(("stage", x.shape[1], x.shape[2], x.dtype,
                        tuple(blk.kernel_size for blk in blocks),
-                       tuple(blocks[0].dilations)))
+                       tuple(blocks[0].dilations), x.shape[0]))
         return stage(x, blocks, cache)
 
     def knn_hook(q, v, k=8):
@@ -222,12 +236,22 @@ def record_path_shapes(fn):
     return shapes
 
 
-def phase_kernels(shapes):
-    """K1/K2/K3 against their plain versions at the shapes the main path
-    gave them (``shapes`` from record_path_shapes), in the path's dtype and
-    in f32, then at the shapes off the path. The wrappers get a weight
-    cache, as the modules give them, so the times are the kernels'. Returns
-    per-kernel records summed over the path's launches."""
+def _shape_key(shape):
+    """A recorded shape as a hashable key, dtype by name, batch 1 if absent."""
+    if shape[0] == "stage":
+        _, c, t, dtype, ks, dil, *b = shape
+        return ("stage", c, t, str(dtype).split(".")[-1], tuple(ks), tuple(dil),
+                b[0] if b else 1)
+    return tuple(shape)
+
+
+def phase_kernels(paths):
+    """K1/K2/K3 against their plain versions at the shapes each path gave
+    them (``paths``: path name -> shapes from record_path_shapes; a shape
+    that several paths or launches share is checked once), in the path's
+    dtype and in f32, then at the shapes off the path. The wrappers get a
+    weight cache, as the modules give them, so the times are the kernels'.
+    Returns per-path, per-kernel records summed over each path's launches."""
     import torch
 
     from rvc_tpu_torch.models.generators.nsf import MRF_MAX_CHANNELS
@@ -236,9 +260,15 @@ def phase_kernels(shapes):
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    rec = {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "bytes_ms": 0.0, "ops_ms": 0.0, "library_ms": 0.0}
-           for n in ("mrf_stage", "resblock_chain", "knn_topk")}
+    uses = {}  # shape key -> launches of that shape per path
+    for path, shapes in paths.items():
+        for sh in shapes:
+            uses.setdefault(_shape_key(sh), collections.Counter())[path] += 1
+    rec = {path: {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                      "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
+                      "library_ms": 0.0}
+                  for n in ("mrf_stage", "resblock_chain", "knn_topk")}
+           for path in paths}
 
     def bound(nbytes, flops_by_peak):
         """(bound ms, bytes ms, operations ms): bytes over the memory rate,
@@ -247,7 +277,7 @@ def phase_kernels(shapes):
         o_ms = 1e3 * sum(f / p for f, p in flops_by_peak)
         return max(b_ms, o_ms), b_ms, o_ms
 
-    def check(name, key, fn, plain, lib, ref_out, tol, bnd, on_path):
+    def check(name, key, fn, plain, lib, ref_out, tol, bnd, on_paths):
         out = fn()
         ref = ref_out()
         torch.cuda.synchronize()
@@ -256,57 +286,57 @@ def phase_kernels(shapes):
                "tol": tol, "ms": gpu_time_ms(fn), "plain_ms": gpu_time_ms(plain, 3),
                "library_ms": gpu_time_ms(lib, 3), "bound_ms": bnd[0],
                "bound_by": "operations" if bnd[2] >= bnd[1] else "bytes",
-               "on_path": on_path}
+               "on_path": dict(on_paths)}
         emit({"phase": "kernel_check", **row})
         require(rel <= tol, f"{name} {key}: rel err {rel} > {tol}")
-        if on_path:  # one of the main path's launches: sum into the record
-            r = rec[name]
+        for path, n in on_paths.items():  # the paths' launches: sum into them
+            r = rec[path][name]
             r["max_abs_err"] = max(r["max_abs_err"], abs_err)
             for f in ("ms", "plain_ms", "library_ms"):
-                r[f] += row[f]
-            r["bound_ms"] += bnd[0]
-            r["bytes_ms"] += bnd[1]
-            r["ops_ms"] += bnd[2]
+                r[f] += n * row[f]
+            for f, v in zip(("bound_ms", "bytes_ms", "ops_ms"), bnd):
+                r[f] += n * v
 
-    for kind, *shape in shapes:
-        if kind != "stage":
+    for key, counts in uses.items():
+        if key[0] != "stage":
             continue
-        c, t, path_dtype, ks, dil = shape
-        path_dtype = getattr(torch, path_dtype) if isinstance(path_dtype, str) \
-            else path_dtype
+        _, c, t, path_dtype, ks, dil, b = key
         chains = [_rand_chain(gen, c, k, dev, dil) for k in ks]
         caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
-        x32 = (torch.randn((1, c, t), generator=gen) * 0.3).to(dev)
+        x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             x = x32.to(dtype)
             nbytes = 2 * x.numel() * x.element_size()
-            key = {"C": c, "T": t, "dtype": str(dtype).split(".")[-1]}
-            on_path = dtype == path_dtype
+            dname = str(dtype).split(".")[-1]
+            key_row = {"B": b, "C": c, "T": t, "dtype": dname}
+            on_paths = counts if dname == path_dtype else {}
             if c <= MRF_MAX_CHANNELS:  # K1: all chains in one launch
-                flops = 2.0 * sum(2 * len(dil) * k * c * c * t for k in ks)
+                flops = 2.0 * b * sum(2 * len(dil) * k * c * c * t for k in ks)
                 peak = [(flops, PEAK_BF16)] if dtype == torch.bfloat16 else \
                     [(3 * flops, PEAK_TF32)]
                 nbytes += sum(2 * len(dil) * k * c * c for k in ks) * (
                     2 if dtype == torch.bfloat16 else 4)
-                check("mrf_stage", key,
+                check("mrf_stage", key_row,
                       lambda: rb.mrf_stage(x, chains, ks, dil, cache=caches[-1]),
                       lambda: rb.mrf_stage_plain(x, chains, dil),
                       lambda: [_library_chain(x, ch, dil) for ch in chains],
                       lambda: rb.mrf_stage_plain(x, chains, dil),
                       2e-2 if dtype == torch.bfloat16 else 1e-4,
-                      bound(nbytes, peak), on_path)
+                      bound(nbytes, peak), on_paths)
             else:  # K2: two conv launches per dilation of each chain
                 for k, ch, cache in zip(ks, chains, caches):
-                    flops = 2.0 * 2 * len(dil) * k * c * c * t
-                    check("resblock_chain", {**key, "K": k},
+                    flops = 2.0 * 2 * len(dil) * k * c * c * t * b
+                    check("resblock_chain", {**key_row, "K": k},
                           lambda: rb.resblock_chain(x, *ch, dil, cache=cache),
                           lambda: rb.resblock_chain_plain(x, *ch, dil),
                           lambda: _library_chain(x.float(), ch, dil),
                           lambda: rb.resblock_chain_plain(x, *ch, dil),
                           2e-2 if dtype == torch.bfloat16 else 1e-4,
                           bound(nbytes + 4 * 2 * len(dil) * k * c * c,
-                                [(3 * flops, PEAK_TF32)]), on_path)
+                                [(3 * flops, PEAK_TF32)]), on_paths)
+            del x
         del chains, x32
+        torch.cuda.empty_cache()
 
     for b, c, t, ks, dil in EXTRA_STAGE_SHAPES:  # K1 off the path
         chains = [_rand_chain(gen, c, k, dev, dil) for k in ks]
@@ -324,7 +354,7 @@ def phase_kernels(shapes):
                   2e-2 if dtype == torch.bfloat16 else 1e-4,
                   bound(2 * x.numel() * x.element_size() + wbytes,
                         [(flops, PEAK_BF16)] if dtype == torch.bfloat16
-                        else [(3 * flops, PEAK_TF32)]), False)
+                        else [(3 * flops, PEAK_TF32)]), {})
         del chains, x32
 
     dil = (1, 3, 5)
@@ -338,12 +368,12 @@ def phase_kernels(shapes):
               lambda: _library_chain(x, ch, dil),
               lambda: rb.resblock_chain_plain(x, *ch, dil), 1e-4,
               bound(8 * x.numel() + 4 * 2 * len(dil) * k * c * c,
-                    [(3 * 2.0 * 2 * len(dil) * k * c * c * t, PEAK_TF32)]), False)
+                    [(3 * 2.0 * 2 * len(dil) * k * c * c * t, PEAK_TF32)]), {})
         del ch, x
 
-    knn_shapes = [tuple(s[1:]) for s in shapes if s[0] == "knn"]
-    require(knn_shapes, "the main path made no retrieval search")
-    for n_q, n_v, d, k in knn_shapes + EXTRA_KNN_SHAPES:
+    knn_uses = [(k[1:], n) for k, n in uses.items() if k[0] == "knn"]
+    require(knn_uses, "the main path made no retrieval search")
+    for (n_q, n_v, d, k), on_paths in knn_uses + [(s, {}) for s in EXTRA_KNN_SHAPES]:
         q = torch.randn((n_q, d), generator=gen).to(dev)
         v = torch.randn((n_v, d), generator=gen).to(dev)
         dist, idx = rt.knn_topk(q, v, k)
@@ -361,13 +391,15 @@ def phase_kernels(shapes):
               lambda: torch.topk(torch.cdist(q, v), k, dim=1, largest=False),
               lambda: ref_d[:, :k], 1e-4,
               bound(4 * (n_q * d + n_v * d) + 12 * n_q * k,
-                    [(3 * 2.0 * n_q * n_v * d, PEAK_TF32)]),
-              (n_q, n_v, d, k) in knn_shapes)
+                    [(3 * 2.0 * n_q * n_v * d, PEAK_TF32)]), on_paths)
         require(bad_rows == 0, f"knn_topk N={n_v}: {bad_rows} rows with other indices")
         del q, v
     torch.cuda.empty_cache()
-    for r in rec.values():
-        r["bound_by"] = "operations" if r.pop("ops_ms") >= r.pop("bytes_ms") else "bytes"
+    for by_kernel in rec.values():
+        for r in by_kernel.values():
+            r["bound_by"] = ("operations" if r.pop("ops_ms") >= r.pop("bytes_ms")
+                             else "bytes")
+    emit({"phase": "kernels_by_path", "paths": rec})
     return rec
 
 
@@ -388,19 +420,34 @@ def _fill_random(module, rng, scale=0.02):
                     rng.normal(size=tuple(t.shape), scale=scale).astype(np.float32)))
 
 
-def _build_models(device, tiny: bool, rng):
+# the small model of phase `small`: narrow widths, two chains of two
+# dilations, a two-layer flow, no noise
+TINY_MODEL = dict(inter_channels=8, hidden_channels=8, filter_channels=16,
+                  n_layers=2, resblock_kernel_sizes=(3, 5),
+                  resblock_dilation_sizes=((1, 3), (1, 3)),
+                  upsample_initial_channel=64, spk_embed_dim=4, gin_channels=8)
+
+
+def _config(tiny: bool, use_f0: bool = True):
     from rvc_tpu_torch.configs import get_config
-    from rvc_tpu_torch.embedders.hubert import Hubert, HubertConfig
+
+    return get_config(48000, use_f0=use_f0, **(TINY_MODEL if tiny else {}))
+
+
+def _synth(cfg, tiny: bool, device):
     from rvc_tpu_torch.models.synthesizer import Synthesizer
+
+    extra = dict(flow_layers=2, zero_noise=True) if tiny else {}
+    return Synthesizer.from_config(cfg, device=device, **extra)
+
+
+def _build_models(device, tiny: bool, rng):
+    from rvc_tpu_torch.embedders.hubert import Hubert, HubertConfig
     from rvc_tpu_torch.predictors.rmvpe import RMVPE, E2EModel
 
-    cfg = get_config(48000)
+    cfg = _config(tiny)
+    synth = _synth(cfg, tiny, device)
     if tiny:
-        synth = Synthesizer.from_config(
-            cfg, device=device, inter_channels=8, hidden_channels=8,
-            filter_channels=16, n_layers=2, resblock_kernel_sizes=(3, 5),
-            resblock_dilation_sizes=((1, 3), (1, 3)), upsample_initial_channel=64,
-            spk_embed_dim=4, gin_channels=8, flow_layers=2, zero_noise=True)
         hub = Hubert.build(HubertConfig(
             hidden_size=768, num_layers=2, num_heads=4, intermediate_size=64,
             conv_dim=(16,) * 7, num_conv_pos_embeddings=16,
@@ -408,7 +455,6 @@ def _build_models(device, tiny: bool, rng):
         e2e = E2EModel(n_blocks=1, en_de_layers=2, inter_layers=1,
                        en_out_channels=4, gru_hidden=16)
     else:
-        synth = Synthesizer.from_config(cfg, device=device)
         hub = Hubert.build(HubertConfig(), device=device)
         e2e = E2EModel()
     rmvpe = RMVPE(e2e, device=device)
@@ -599,7 +645,7 @@ def phase_stages(pipe, audio, index, smi: str):
     with torch.no_grad():
         stages = {
             "rmvpe_mel": lambda: rmvpe_mel(wave),
-            "rmvpe_model": lambda: pipe._rmvpe.model(mel),
+            "rmvpe_model": lambda: pipe._rmvpe_model(mel),
             "hubert": lambda: pipe.embedder(wave.to(dt)),
             "retrieval": lambda: retrieve_blend(q, index, 0.75),
             "synth_infer": lambda: synth.infer(phone, lengths, pitch, pitchf, sid),
@@ -637,6 +683,436 @@ def phase_trace(run, smi: str):
                   for e in top]})
 
 
+# -- the user's entry points: model files, the CLI, long inputs, folders -------
+
+def _config_list(cfg) -> list:
+    """The reference's 18-element config list of a configuration."""
+    d, m = cfg.data, cfg.model
+    return [d.filter_length // 2 + 1, 17280 // d.hop_length, m.inter_channels,
+            m.hidden_channels, m.filter_channels, m.n_heads, m.n_layers,
+            m.kernel_size, m.p_dropout, "1", list(m.resblock_kernel_sizes),
+            [list(t) for t in m.resblock_dilation_sizes], list(m.upsample_rates),
+            m.upsample_initial_channel, list(m.upsample_kernel_sizes),
+            m.spk_embed_dim, m.gin_channels, d.sample_rate]
+
+
+def _write_pth(path, model, cfg, f0: int) -> None:
+    """A deployable reference .pth: fp16 tensors under "weight", the config
+    list and the metadata fields."""
+    import torch
+
+    weight = {k: v.detach().cpu().half() for k, v in model.state_dict().items()}
+    torch.save({"weight": weight, "config": _config_list(cfg),
+                "sr": cfg.data.sample_rate, "f0": f0, "version": "v2",
+                "vocoder": "HiFi-GAN", "epoch": 0, "step": 0}, path)
+
+
+def _reference_rmvpe(e2e) -> dict:
+    """The port's E2EModel in the reference rmvpe.pt layout: ``nn.GRU``
+    weights (gates r, z, n stacked; the folded r/z bias kept in b_ih) and
+    the batch norms' ``num_batches_tracked``."""
+    import torch
+
+    gru = e2e.fc[0].gru
+    sd = {}
+    for k, v in e2e.state_dict().items():
+        if not k.startswith("fc.0.gru."):
+            sd[k] = v.detach().cpu().clone()
+            if k.endswith("running_mean"):
+                sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
+    for sfx, tag in (("", "fwd"), ("_reverse", "bwd")):
+        p = {n: getattr(gru, f"{n}_{tag}").detach().cpu() for n in ("wi", "bi", "wh", "bhn")}
+        sd[f"fc.0.gru.weight_ih_l0{sfx}"] = p["wi"].T.contiguous()
+        sd[f"fc.0.gru.weight_hh_l0{sfx}"] = p["wh"].T.contiguous()
+        sd[f"fc.0.gru.bias_ih_l0{sfx}"] = p["bi"].clone()
+        sd[f"fc.0.gru.bias_hh_l0{sfx}"] = torch.cat([torch.zeros(2 * gru.hidden),
+                                                     p["bhn"]])
+    return sd
+
+
+def _hf_hubert(hub) -> dict:
+    """The port's Hubert in the transformers layout: the positional conv's
+    weight norm over dim 2 (g of shape [1, 1, K])."""
+    import torch
+
+    from rvc_tpu_torch.models.commons import weight_norm
+
+    sd = {k: v.detach().cpu().clone() for k, v in hub.state_dict().items()}
+    base = "encoder.pos_conv_embed.conv"
+    w = weight_norm(sd.pop(f"{base}.weight_v"), sd.pop(f"{base}.weight_g"))
+    sd[f"{base}.weight_g"] = torch.sqrt(torch.sum(w * w, dim=(0, 1), keepdim=True))
+    sd[f"{base}.weight_v"] = w
+    return sd
+
+
+def phase_files(smi: str, root: str) -> dict:
+    """Write the fixtures in the reference formats from numpy seed 0 (a
+    full-width 48 kHz .pth with and without pitch, a 65536 x 768 flat faiss
+    index, rmvpe.pt, an HF-layout contentvec), read them back through the
+    port's loaders onto the card, and check they give back what was
+    written."""
+    import torch
+
+    from rvc_tpu_torch.embedders.hubert import load_embedder
+    from rvc_tpu_torch.models.commons import weight_norm
+    from rvc_tpu_torch.ops.retrieval import FeatureIndex
+    from rvc_tpu_torch.predictors.rmvpe import RMVPE
+    from rvc_tpu_torch.utils.checkpoints import build_synthesizer, load_rvc_pth
+    from rvc_tpu_torch.utils.faiss_io import write_index_flat
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    cfg, synth, hub, rmvpe = _build_models("cpu", False, rng)
+    cfg0 = _config(False, use_f0=False)
+    synth0 = _synth(cfg0, False, "cpu")
+    _fill_random(synth0, rng)
+    index = rng.normal(size=(65536, 768)).astype(np.float32)
+    paths = {"pth": os.path.join(root, "model.pth"),
+             "pth_nof0": os.path.join(root, "model_nof0.pth"),
+             "index": os.path.join(root, "added_IVF256_Flat_nprobe_1_model_v2.index"),
+             "rmvpe": os.path.join(root, "models", "predictors", "rmvpe.pt"),
+             "embedder": os.path.join(root, "models", "embedders", "contentvec",
+                                      "pytorch_model.bin")}
+    for key in ("rmvpe", "embedder"):
+        os.makedirs(os.path.dirname(paths[key]), exist_ok=True)
+    _write_pth(paths["pth"], synth, cfg, 1)
+    _write_pth(paths["pth_nof0"], synth0, cfg0, 0)
+    write_index_flat(paths["index"], index)
+    torch.save(_reference_rmvpe(rmvpe.model), paths["rmvpe"])
+    torch.save(_hf_hubert(hub), paths["embedder"])
+    write_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    for key, src, f0 in (("pth", synth, 1), ("pth_nof0", synth0, 0)):
+        sd, meta = load_rvc_pth(paths[key])
+        model, got_cfg, use_f0 = build_synthesizer(sd, meta)
+        require(use_f0 == bool(f0) and got_cfg.model == (cfg if f0 else cfg0).model,
+                f"{key}: rebuilt {got_cfg.model} use_f0={use_f0}")
+        want = {k: v.half().float() for k, v in src.state_dict().items()}
+        got = model.state_dict()
+        require(got.keys() == want.keys(), f"{key}: the rebuilt model has other weights")
+        bad = [k for k in want if not torch.equal(got[k].cpu(), want[k])]
+        require(not bad, f"{key}: rebuilt weights differ from the written: {bad[:4]}")
+        del model
+    vec = FeatureIndex.load(paths["index"]).vectors
+    require(torch.equal(vec.cpu(), torch.from_numpy(index)),
+            "the .index read back differs")
+    pred = RMVPE.from_torch_checkpoint(paths["rmvpe"])
+    got = pred.model.state_dict()
+    bad = [k for k, v in rmvpe.model.state_dict().items() if not torch.equal(got[k].cpu(), v)]
+    require(not bad, f"rmvpe.pt read back differs: {bad[:4]}")
+    emb = load_embedder(paths["embedder"])
+    got, want = emb.state_dict(), hub.state_dict()
+    pos = "encoder.pos_conv_embed.conv"
+    bad = [k for k in want if not k.startswith(pos + ".weight")
+           and not torch.equal(got[k].cpu(), want[k])]
+    w_got = weight_norm(got[f"{pos}.weight_v"], got[f"{pos}.weight_g"]).cpu()
+    w_want = weight_norm(want[f"{pos}.weight_v"], want[f"{pos}.weight_g"])
+    pos_err = _err(w_want, w_got)[1]
+    require(not bad and pos_err <= 1e-6,
+            f"embedder read back differs: {bad[:4]}, positional conv {pos_err}")
+    load_s = time.perf_counter() - t0
+    emit({"phase": "files", "gpu": smi, "write_s": write_s, "load_s": load_s,
+          "bytes": {k: os.path.getsize(p) for k, p in paths.items()},
+          "pos_conv_rel_err": pos_err})
+    del pred, emb, vec, synth, synth0, hub, rmvpe
+    torch.cuda.empty_cache()
+    return paths
+
+
+class _Probe:
+    """Patches ``Pipeline`` and ``VoiceConverter`` for one run: host time
+    of each ``get_f0`` and of model loading, CUDA-event device time of each
+    ``_convert_core`` (one window or batch each; enqueued ahead, so the
+    events time the device's work on it), the rows of each
+    ``convert_segments_batch``, and the pipeline that ran."""
+
+    def __enter__(self):
+        import torch
+
+        from rvc_tpu_torch.infer.converter import VoiceConverter
+        from rvc_tpu_torch.infer.pipeline import Pipeline
+
+        self.f0_s, self.load_s, self.events, self.rows, self.pipe = [], [], [], [], None
+        self.saved = [(Pipeline, n, getattr(Pipeline, n)) for n in
+                      ("get_f0", "_convert_core", "convert_segments_batch")]
+        self.saved += [(VoiceConverter, n, getattr(VoiceConverter, n))
+                       for n in ("get_vc", "get_predictors")]
+        orig = {n: f for _, n, f in self.saved}
+
+        def timed(name, into):
+            def hook(obj, *a, **k):
+                t0 = time.perf_counter()
+                out = orig[name](obj, *a, **k)
+                into.append(time.perf_counter() - t0)
+                return out
+            return hook
+
+        def core(pipe, *a, **k):
+            self.pipe = pipe
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig["_convert_core"](pipe, *a, **k)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        def batch(pipe, segments, *a, **k):
+            self.rows.append(len(segments))
+            return orig["convert_segments_batch"](pipe, segments, *a, **k)
+
+        Pipeline.get_f0 = timed("get_f0", self.f0_s)
+        Pipeline._convert_core = core
+        Pipeline.convert_segments_batch = batch
+        VoiceConverter.get_vc = timed("get_vc", self.load_s)
+        VoiceConverter.get_predictors = timed("get_predictors", self.load_s)
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+    def device_ms(self):
+        import torch
+
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def _cli(argv, root):
+    """``rvc_tpu_torch.cli.main(argv)`` in-process, run from ``root`` (where
+    the staged models/ are); returns its wall seconds."""
+    import torch
+
+    from rvc_tpu_torch import cli
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    require(rc == 0, f"cli {argv[0]} returned {rc}")
+    return wall
+
+
+def _windowed_len(pipe, audio16: np.ndarray) -> int:
+    """Output samples of ``Pipeline.pipeline`` on its windowed path: the
+    windows cut at the port's own quietest points, each p_len frames of its
+    bucket less the pads."""
+    audio = pipe._highpass(audio16)
+    n_pad = audio.shape[0] + 2 * pipe.t_pad
+    lens, s = [], 0
+    for t_raw in pipe._find_cut_points(audio):
+        t = t_raw // 160 * 160
+        lens.append(min(t + pipe.t_pad2 + 160, n_pad) - s)
+        s = t
+    lens.append(n_pad - s)
+    return sum(_segment_len(pipe, n) - 2 * pipe.t_pad_tgt for n in lens)
+
+
+def _check_wav(path, n_expect: int, what: str) -> np.ndarray:
+    from rvc_tpu_torch.utils.audio_io import read_wav
+
+    data, sr = read_wav(path)
+    require(sr == 48000, f"{what}: output at {sr} Hz, not 48000")
+    require(data.shape == (n_expect,), f"{what}: {data.shape} samples != ({n_expect},)")
+    require(bool(np.isfinite(data).all()) and float(np.abs(data).max()) <= 1.0,
+            f"{what}: output not finite or beyond |x| <= 1")
+    return data
+
+
+def _flags(paths):
+    return ["--index_path", paths["index"], "--f0_method", "rmvpe",
+            "--index_rate", "0.75", "--protect", "0.33", "--pitch", "2"]
+
+
+def phase_windowed(smi: str, paths: dict, root: str, seconds: float = 150.0):
+    """The CLI's ``infer`` on a long input read from a 44.1 kHz stereo WAV
+    (mono mix, resampling, three windows): a warm-up run that records the
+    kernels' shapes, then three timed runs, the first with the launch
+    counts."""
+    import torch
+
+    from rvc_tpu_torch.utils.audio_io import load_audio, write_wav
+
+    rng = np.random.default_rng(4)
+    n = int(seconds * 44100)
+    tt = np.arange(n) / 44100
+    env = 0.55 + 0.45 * np.sin(2 * np.pi * tt / 7.3)
+    left = env * (0.4 * np.sin(2 * np.pi * 220 * tt) + 0.05 * rng.normal(size=n))
+    wav = os.path.join(root, "long_44k_stereo.wav")
+    write_wav(wav, np.stack([left, 0.8 * left], axis=1).astype(np.float32), 44100)
+    out = os.path.join(root, "long_out.wav")
+    argv = ["infer", "--input_path", wav, "--output_path", out,
+            "--pth_path", paths["pth"], *_flags(paths)]
+
+    shapes = record_path_shapes(lambda: _cli(argv, root))
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        with _Probe() as probe:
+            if i == 0:
+                _reset_counts()
+            walls.append(_cli(argv, root))
+            if i == 0:
+                counts = _counts()
+                first = probe
+        if i == 0:
+            window_ms = probe.device_ms()
+    audio16 = load_audio(wav, 16000)
+    audio16 = audio16 / max(np.abs(audio16).max() / 0.95, 1.0)
+    data = _check_wav(out, _windowed_len(first.pipe, audio16), "windowed")
+    for name, c in counts.items():
+        require(c > 0, f"kernel {name} was not launched on the windowed path")
+    require(len(window_ms) == 3, f"{len(window_ms)} windows, not 3")
+    wall = statistics.median(walls)
+    emit({"phase": "windowed", "gpu": smi, "input_s": seconds, "input": "44.1 kHz stereo",
+          "samples": int(data.shape[0]), "windows": len(window_ms), "launches": counts,
+          "wall_s": wall, "wall_s_all": walls, "realtime_factor": seconds / wall,
+          "host_f0_s": first.f0_s, "load_s": first.load_s,
+          "device_ms_per_window": window_ms,
+          "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+          "kernel_shapes": [[str(v) if isinstance(v, torch.dtype) else v for v in sh]
+                            for sh in shapes]})
+    return counts, shapes
+
+
+def phase_batch(smi: str, paths: dict, root: str):
+    """The CLI's ``batch_infer`` on a folder of four files (3, 5, 8, 11 s):
+    one ``convert_segments_batch`` of four rows; its wall against the same
+    files one by one through ``convert_audio``; and a small fp32 model's
+    ``convert_segments_batch`` on the card against the same call on the CPU."""
+    import torch
+
+    from rvc_tpu_torch.infer.converter import VoiceConverter
+    from rvc_tpu_torch.infer.pipeline import Pipeline, PipelineConfig
+    from rvc_tpu_torch.utils.audio_io import write_wav
+
+    src = os.path.join(root, "batch_in")
+    os.makedirs(src, exist_ok=True)
+    lengths = {"a": 3.0, "b": 5.0, "c": 8.0, "d": 11.0}
+    for i, (name, sec) in enumerate(lengths.items()):
+        write_wav(os.path.join(src, f"{name}.wav"),
+                  _audio(sec, np.random.default_rng(20 + i)), 16000)
+
+    def argv(out):
+        return ["batch_infer", "--input_folder", src, "--output_folder", out,
+                "--pth_path", paths["pth"], *_flags(paths)]
+
+    shapes = record_path_shapes(lambda: _cli(argv(os.path.join(root, "b0")), root))
+    walls = []
+    for i in range(3):
+        out = os.path.join(root, f"b{i + 1}")
+        with _Probe() as probe:
+            if i == 0:
+                _reset_counts()
+            walls.append(_cli(argv(out), root))
+            if i == 0:
+                counts, rows, pipe = _counts(), probe.rows, probe.pipe
+    require(rows == [4], f"batch_infer made convert_segments_batch calls of {rows} rows")
+    for name, c in counts.items():
+        require(c > 0, f"kernel {name} was not launched on the batch path")
+    t_bucket = pipe._bucket_len(int(max(lengths.values()) * 16000) + 2 * pipe.t_pad)
+    for name, sec in lengths.items():
+        n16 = int(sec * 16000) + 2 * pipe.t_pad
+        _check_wav(os.path.join(root, "b1", f"{name}_output.wav"),
+                   pipe._p_len(n16, t_bucket) * pipe.upp - 2 * pipe.t_pad_tgt,
+                   f"batch {name}")
+
+    # the same files through one warm converter: packed, then one by one
+    kw = dict(model_path=paths["pth"], index_path=paths["index"], f0_method="rmvpe",
+              index_rate=0.75, protect=0.33, pitch=2)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        vc = VoiceConverter()
+        vc.convert_audio_batch(src, os.path.join(root, "w0"), **kw)
+        packed, single = [], []
+        for i in range(3):
+            t0 = time.perf_counter()
+            vc.convert_audio_batch(src, os.path.join(root, f"w{i + 1}"), **kw)
+            torch.cuda.synchronize()
+            packed.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            for name in lengths:
+                vc.convert_audio(os.path.join(src, f"{name}.wav"),
+                                 os.path.join(root, f"s{i}_{name}.wav"), **kw)
+            torch.cuda.synchronize()
+            single.append(time.perf_counter() - t0)
+    finally:
+        os.chdir(cwd)
+    del vc
+
+    # a small fp32 model: the card's batch against the CPU's plain versions
+    outs, pitch = {}, None
+    for device in ("cpu", "cuda"):
+        rng = np.random.default_rng(1)
+        cfg, synth, hub, rmvpe = _build_models(device, True, rng)
+        small = Pipeline(48000, synth, hub, PipelineConfig(x_pad=1),
+                         upsample_factor=cfg.upsample_factor, precision="fp32",
+                         device=device)
+        small.set_rmvpe(rmvpe)
+        index = rng.normal(size=(3000, 768)).astype(np.float32)
+        segs = [np.pad(small._highpass(_audio(sec, np.random.default_rng(30 + i))),
+                       (16000, 16000), mode="reflect")
+                for i, sec in enumerate((1.0, 1.5, 2.25, 3.0))]
+        if pitch is None:  # one pitch for both: the batch path alone
+            pitch = [small.get_f0(s, s.shape[0] // 160, 2) for s in segs]
+        _reset_counts()
+        outs[device] = small.convert_segments_batch(
+            segs, [p[0] for p in pitch], [p[1] for p in pitch], [1] * 4, index,
+            0.75, 0.33)
+        small_counts = _counts()
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs["cpu"], outs["cuda"]))
+    require(all(a.shape == b.shape for a, b in zip(outs["cpu"], outs["cuda"])),
+            "small batch: shapes differ")
+    require(err <= 1e-3, f"small batch: card vs CPU plain max abs err {err} > 1e-3")
+    require(small_counts["resblock_chain"] > 0 and small_counts["knn_topk"] > 0,
+            "small batch: kernels not launched")
+    audio_s = sum(lengths.values())
+    emit({"phase": "batch", "gpu": smi, "files_s": list(lengths.values()),
+          "rows": rows, "launches": counts, "cli_wall_s": statistics.median(walls),
+          "cli_wall_s_all": walls, "cli_audio_s_per_wall_s": audio_s / statistics.median(walls),
+          "packed_wall_s": statistics.median(packed), "packed_wall_s_all": packed,
+          "packed_audio_s_per_wall_s": audio_s / statistics.median(packed),
+          "one_by_one_wall_s": statistics.median(single), "one_by_one_wall_s_all": single,
+          "one_by_one_audio_s_per_wall_s": audio_s / statistics.median(single),
+          "small_fp32_max_abs_err_vs_cpu_plain": err, "small_launches": small_counts,
+          "kernel_shapes": [[str(v) if isinstance(v, torch.dtype) else v for v in sh]
+                            for sh in shapes]})
+    return counts, shapes
+
+
+def phase_nof0(smi: str, paths: dict, root: str):
+    """The CLI's ``infer`` with the model without pitch (plain HiFi-GAN
+    decoder) on 10 s of audio."""
+    from rvc_tpu_torch.utils.audio_io import write_wav
+
+    wav = os.path.join(root, "nof0_in.wav")
+    audio = _audio(10.0, np.random.default_rng(5))
+    write_wav(wav, audio, 16000)
+    out = os.path.join(root, "nof0_out.wav")
+    argv = ["infer", "--input_path", wav, "--output_path", out,
+            "--pth_path", paths["pth_nof0"], *_flags(paths)]
+    shapes = record_path_shapes(lambda: _cli(argv, root))
+    with _Probe() as probe:
+        _reset_counts()
+        wall = _cli(argv, root)
+        counts = _counts()
+    require(probe.f0_s == [], "the model without pitch ran an f0 predictor")
+    require(counts["mrf_stage"] > 0 and counts["resblock_chain"] > 0,
+            f"the plain HiFi-GAN decoder did not launch K1 and K2: {counts}")
+    audio = audio / max(np.abs(audio).max() / 0.95, 1.0)
+    data = _check_wav(out, _windowed_len(probe.pipe, audio), "nof0")
+    emit({"phase": "nof0", "gpu": smi, "samples": int(data.shape[0]),
+          "peak_abs": float(np.abs(data).max()), "launches": counts, "wall_s": wall})
+    return counts, shapes
+
+
 KERNEL_META = {
     "mrf_stage": ("rvc_tpu_torch/csrc/resblock.cu", "rvc_tpu/ops/resblock_pallas.py:437"),
     "resblock_chain": ("rvc_tpu_torch/csrc/resblock_chain.cu",
@@ -653,7 +1129,8 @@ def main(argv) -> int:
               file=sys.stderr)
         return 2
     phases = argv[1].split(",") if len(argv) > 1 else [
-        "env", "build", "small", "pipeline", "stream", "kernels", "stages"]
+        "env", "build", "small", "pipeline", "stream", "files", "windowed", "batch",
+        "nof0", "kernels", "stages"]
     sys.path.insert(0, REPO)
     import rvc_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -662,22 +1139,35 @@ def main(argv) -> int:
         phase_build()
     if "small" in phases:
         phase_small_reference()
-    counts, rec = {}, {}
+    counts, rec, launches, path_shapes = {}, {}, {}, {}
     if "unit" in phases:
-        phase_kernels(UNIT_SHAPES)
-    if "pipeline" in phases:
-        pipe, audio, index, counts, run, shapes = phase_pipeline(smi)
-        if "stream" in phases:
-            phase_stream(pipe, audio, index, smi)
-        if "kernels" in phases:  # at the shapes the main path gave the kernels
-            rec = phase_kernels(shapes)
-        if "stages" in phases:
+        phase_kernels({"unit": UNIT_SHAPES})
+    user_paths = [p for p in ("windowed", "batch", "nof0") if p in phases]
+    root = tempfile.mkdtemp(prefix="rvc_chip_smoke_")
+    try:
+        if "pipeline" in phases:
+            pipe, audio, index, counts, run, shapes = phase_pipeline(smi)
+            launches["pipeline"], path_shapes["pipeline"] = counts, shapes
+            if "stream" in phases:
+                phase_stream(pipe, audio, index, smi)
+        if "files" in phases or user_paths:
+            files = phase_files(smi, root)
+            for name in user_paths:
+                phase = {"windowed": phase_windowed, "batch": phase_batch,
+                         "nof0": phase_nof0}[name]
+                launches[name], path_shapes[name] = phase(smi, files, root)
+        if "kernels" in phases and path_shapes:  # at the shapes the paths gave
+            rec = phase_kernels(path_shapes).get("pipeline", {})
+        if "pipeline" in phases and "stages" in phases:
             phase_stages(pipe, audio, index, smi)
-        if "trace" in phases:
+        if "pipeline" in phases and "trace" in phases:
             phase_trace(run, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts.get(name, 0), **rec.get(name, {})}
+         "launches": counts.get(name, 0), **rec.get(name, {}),
+         "launches_by_path": {p: c.get(name, 0) for p, c in launches.items()}}
         for name, (src, rep) in KERNEL_META.items()], "gpu": smi})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -79,12 +79,15 @@ def _wavenet(sd, prefix: str, p: Tree) -> None:
 
 
 def synthesizer_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
-    """flax ``Synthesizer`` params (NSF decoder) -> the port's
-    ``Synthesizer`` state_dict (the posterior encoder is skipped)."""
+    """flax ``Synthesizer`` params (NSF decoder, or the plain HiFi-GAN
+    decoder of a model without pitch: no ``emb_pitch``, ``m_source`` or
+    ``noise_convs``) -> the port's ``Synthesizer`` state_dict (the posterior
+    encoder is skipped)."""
     sd: Dict[str, torch.Tensor] = {}
     enc = params["enc_p"]
     _dense(sd, "enc_p.emb_phone", enc["emb_phone"])
-    sd["enc_p.emb_pitch.weight"] = _t(enc["emb_pitch"]["embedding"])
+    if "emb_pitch" in enc:
+        sd["enc_p.emb_pitch.weight"] = _t(enc["emb_pitch"]["embedding"])
     blocks = enc["encoder"]["blocks"]
     n_layers = int(next(iter(_flatten(blocks).values())).shape[0])
     for i in range(n_layers):
@@ -113,7 +116,8 @@ def synthesizer_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
     dec = params["dec"]
     _conv1d(sd, "dec.conv_pre", dec["conv_pre"])
     _conv1d(sd, "dec.conv_post", dec["conv_post"])
-    _dense(sd, "dec.m_source.l_linear", dec["m_source"]["l_linear"])
+    if "m_source" in dec:
+        _dense(sd, "dec.m_source.l_linear", dec["m_source"]["l_linear"])
     if "cond" in dec:
         _conv1d(sd, "dec.cond", dec["cond"])
     n_ups = sum(1 for k in dec if k.startswith("ups_"))
@@ -124,7 +128,8 @@ def synthesizer_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
         sd[f"dec.ups.{i}.weight_v"] = _t(
             np.transpose(np.asarray(up["kernel"]), (1, 2, 0)))  # [in, out, K]
         sd[f"dec.ups.{i}.bias"] = _t(up["bias"])
-        _conv1d(sd, f"dec.noise_convs.{i}", dec[f"noise_convs_{i}"])
+        if f"noise_convs_{i}" in dec:
+            _conv1d(sd, f"dec.noise_convs.{i}", dec[f"noise_convs_{i}"])
         for j in range(num_kernels):
             rb = dec[f"resblock_{i}_{j}"]
             flat = i * num_kernels + j

@@ -1,3 +1,5 @@
-from .hubert import Hubert, HubertConfig
+from .hubert import (EMBEDDER_REGISTRY, Hubert, HubertConfig, load_embedder,
+                     load_embedder_by_name, resolve_embedder_path)
 
-__all__ = ["Hubert", "HubertConfig"]
+__all__ = ["EMBEDDER_REGISTRY", "Hubert", "HubertConfig", "load_embedder",
+           "load_embedder_by_name", "resolve_embedder_path"]

@@ -7,13 +7,18 @@ transformer layers with plain matmul + softmax attention.
 Module names follow ``transformers.HubertModel`` (the layout
 ``convert_torch_hubert`` in the JAX package reads), except that the
 positional conv's weight norm is stored per output channel
-(``weight_g`` [C, 1, 1]), the form the JAX parameters carry."""
+(``weight_g`` [C, 1, 1]), the form the JAX parameters carry. The loaders
+at the end read a checkpoint in that layout (``load_embedder``) or by name
+from ``models/embedders/`` (``load_embedder_by_name``)."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import json
+import os
+from typing import Dict, Optional, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -193,3 +198,128 @@ class Hubert(nn.Module):
     def build(cfg: HubertConfig = HubertConfig(),
               device: Union[str, torch.device] = "cuda") -> "Hubert":
         return Hubert(cfg).to(resolve_device(device)).eval()
+
+
+# -- checkpoint loading ------------------------------------------------------
+
+_SAFETENSORS_DTYPES = {
+    "F64": np.float64, "F32": np.float32, "F16": np.float16,
+    "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+    "U8": np.uint8, "BOOL": np.bool_,
+}
+
+
+def _read_safetensors(path: str) -> Dict[str, torch.Tensor]:
+    """Minimal safetensors reader: 8-byte little-endian header length, a
+    JSON header {name: {dtype, shape, data_offsets}}, then the raw
+    little-endian tensor bytes."""
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        buf = f.read()
+    out = {}
+    for name, meta in header.items():
+        if name == "__metadata__":
+            continue
+        start, end = meta["data_offsets"]
+        raw = buf[start:end]
+        if meta["dtype"] == "BF16":
+            u16 = np.frombuffer(raw, np.uint16)
+            arr = (u16.astype(np.uint32) << 16).view(np.float32)
+        else:
+            arr = np.frombuffer(raw, _SAFETENSORS_DTYPES[meta["dtype"]])
+        out[name] = torch.from_numpy(arr.reshape(meta["shape"]).copy())
+    return out
+
+
+def hubert_state_dict_from_hf(sd: Dict[str, torch.Tensor],
+                              cfg: HubertConfig = HubertConfig()
+                              ) -> Dict[str, torch.Tensor]:
+    """A ``transformers.HubertModel`` state_dict (RVC's extra ``final_proj``
+    used when ``cfg.final_proj_dim`` is set) -> the port's ``Hubert``
+    state_dict, float32. The positional conv's weight norm (dim 2, in either
+    spelling) is recombined and stored per output channel."""
+    sd = {k: (v.float() if torch.is_floating_point(v) else v) for k, v in sd.items()}
+    base = "encoder.pos_conv_embed.conv"
+    if f"{base}.parametrizations.weight.original0" in sd:
+        g = sd[f"{base}.parametrizations.weight.original0"]
+        v = sd[f"{base}.parametrizations.weight.original1"]
+    else:
+        g, v = sd[f"{base}.weight_g"], sd[f"{base}.weight_v"]
+    w = v / torch.sqrt(torch.sum(v * v, dim=(0, 1), keepdim=True) + 1e-12) * g
+    out = dict(sd)
+    out[f"{base}.weight_v"] = w
+    out[f"{base}.weight_g"] = torch.sqrt(
+        torch.sum(w * w, dim=(1, 2), keepdim=True) + 1e-12)
+    expected = Hubert(cfg).state_dict()
+    missing = sorted(set(expected) - set(out))
+    if missing:
+        raise KeyError(f"embedder checkpoint lacks {missing[:8]}")
+    return {k: out[k] for k in expected}
+
+
+def load_embedder(model_path: Optional[str] = None,
+                  cfg: HubertConfig = HubertConfig(),
+                  device: Union[str, torch.device] = "cuda") -> Hubert:
+    """A ``Hubert`` on ``device`` with the weights of a torch checkpoint
+    (state_dict, ``{"state_dict": ...}`` or a transformers save as ``.bin``
+    or ``.safetensors``); without a path, randomly initialized."""
+    model = Hubert(cfg)
+    if model_path:
+        if model_path.endswith(".safetensors"):
+            sd = _read_safetensors(model_path)
+        else:
+            obj = torch.load(model_path, map_location="cpu", weights_only=True)
+            sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
+        model.load_state_dict(hubert_state_dict_from_hf(sd, cfg), strict=True)
+    return model.to(resolve_device(device)).eval()
+
+
+# Named embedders, each a directory under models/embedders/ where the user
+# places the checkpoint (the reference downloads it on first use).
+EMBEDDER_REGISTRY = {
+    "contentvec": "contentvec",
+    "spin": "spin",
+    "chinese-hubert-base": "chinese_hubert_base",
+    "japanese-hubert-base": "japanese_hubert_base",
+    "korean-hubert-base": "korean_hubert_base",
+}
+
+
+def resolve_embedder_path(embedder_model: str = "contentvec",
+                          embedder_model_custom: Optional[str] = None,
+                          root: Optional[str] = None) -> Optional[str]:
+    """Name -> local checkpoint path, or None when absent. 'custom' (or a
+    custom path beside a name) uses the explicit path when it exists."""
+    if embedder_model == "custom" or embedder_model_custom:
+        if embedder_model_custom and os.path.exists(embedder_model_custom):
+            return embedder_model_custom
+        if embedder_model_custom:
+            print(f"custom embedder not found: {embedder_model_custom}; "
+                  f"falling back to "
+                  f"{'contentvec' if embedder_model == 'custom' else embedder_model}")
+        if embedder_model == "custom":
+            embedder_model = "contentvec"
+    if embedder_model not in EMBEDDER_REGISTRY:
+        raise ValueError(f"unknown embedder {embedder_model!r}; expected one of "
+                         f"{sorted(EMBEDDER_REGISTRY)} or 'custom'")
+    base = os.path.join(root or os.path.join("models", "embedders"),
+                        EMBEDDER_REGISTRY[embedder_model])
+    for fn in ("pytorch_model.bin", "model.safetensors", "model.pt"):
+        p = os.path.join(base, fn)
+        if os.path.exists(p):
+            return p
+    return None
+
+
+def load_embedder_by_name(embedder_model: str = "contentvec",
+                          embedder_model_custom: Optional[str] = None,
+                          cfg: HubertConfig = HubertConfig(),
+                          device: Union[str, torch.device] = "cuda") -> Hubert:
+    """Registry-aware ``load_embedder``. A missing checkpoint gives a
+    randomly initialized embedder and a warning, as the JAX package does."""
+    path = resolve_embedder_path(embedder_model, embedder_model_custom)
+    if path is None:
+        print(f"embedder {embedder_model!r} checkpoint not found under "
+              "models/embedders/; using random-initialized weights")
+    return load_embedder(path, cfg, device)

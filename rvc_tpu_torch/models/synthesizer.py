@@ -1,6 +1,7 @@
 """The VITS-style voice-conversion synthesizer, inference subset (port of
 ``rvc_tpu/models/synthesizer.py``'s ``Synthesizer.infer`` with the
-NSF-HiFi-GAN decoder): prior sample -> inverse flow -> decode. The posterior
+HiFi-GAN decoders: NSF for pitch-guided models, plain HiFi-GAN for models
+without pitch): prior sample -> inverse flow -> decode. The posterior
 encoder and the training forward come with the training port."""
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from torch import nn
 from ..device import resolve_device
 from .encoders import TextEncoder
 from .flows import ResidualCouplingBlock
+from .generators.hifigan import HiFiGANGenerator
 from .generators.nsf import HiFiGANNSFGenerator
 
 
@@ -28,31 +30,40 @@ class Synthesizer(nn.Module):
                  upsample_kernel_sizes: Sequence[int] = (24, 20, 4, 4),
                  spk_embed_dim: int = 109, gin_channels: int = 256,
                  sr: int = 48000, text_enc_hidden_dim: int = 768,
-                 flow_layers: int = 3, zero_noise: bool = False):
+                 flow_layers: int = 3, zero_noise: bool = False,
+                 use_f0: bool = True):
         super().__init__()
-        self.zero_noise = zero_noise
+        self.zero_noise, self.use_f0 = zero_noise, use_f0
         self.enc_p = TextEncoder(inter_channels, hidden_channels,
                                  filter_channels, n_heads, n_layers,
-                                 kernel_size, text_enc_hidden_dim, use_f0=True)
+                                 kernel_size, text_enc_hidden_dim, use_f0=use_f0)
         self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5,
                                           1, flow_layers,
                                           gin_channels=gin_channels)
         self.emb_g = nn.Embedding(spk_embed_dim, gin_channels)
-        self.dec = HiFiGANNSFGenerator(
-            inter_channels, resblock_kernel_sizes, resblock_dilation_sizes,
-            upsample_rates, upsample_initial_channel, upsample_kernel_sizes,
-            gin_channels=gin_channels, sr=sr, zero_noise=zero_noise)
+        if use_f0:
+            self.dec = HiFiGANNSFGenerator(
+                inter_channels, resblock_kernel_sizes, resblock_dilation_sizes,
+                upsample_rates, upsample_initial_channel, upsample_kernel_sizes,
+                gin_channels=gin_channels, sr=sr, zero_noise=zero_noise)
+        else:
+            self.dec = HiFiGANGenerator(
+                inter_channels, resblock_kernel_sizes, resblock_dilation_sizes,
+                upsample_rates, upsample_initial_channel, upsample_kernel_sizes,
+                gin_channels=gin_channels)
 
     @torch.no_grad()
     def infer(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
-              pitch: torch.Tensor, nsff0: torch.Tensor, sid: torch.Tensor,
-              temperature: float = 0.66666,
+              pitch: Optional[torch.Tensor], nsff0: Optional[torch.Tensor],
+              sid: torch.Tensor, temperature: float = 0.66666,
               generator: Optional[torch.Generator] = None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """phone [B, T, D], lengths [B], pitch [B, T] int, nsff0 [B, T] f0 Hz,
-        sid [B] -> (audio [B, T_audio, 1], x_mask [B, T, 1])."""
+        """phone [B, T, D], lengths [B], pitch [B, T] int, nsff0 [B, T] f0 Hz
+        (both ignored, and may be None, without pitch guidance), sid [B] ->
+        (audio [B, T_audio, 1], x_mask [B, T, 1])."""
         g = self.emb_g(sid)[:, :, None]                      # [B, gin, 1]
-        m_p, logs_p, x_mask = self.enc_p(phone, pitch, phone_lengths)
+        m_p, logs_p, x_mask = self.enc_p(phone, pitch if self.use_f0 else None,
+                                         phone_lengths)
         if self.zero_noise or temperature == 0.0:
             z_p = m_p * x_mask
         else:
@@ -60,7 +71,10 @@ class Synthesizer(nn.Module):
                               device=m_p.device).to(m_p.dtype)
             z_p = (m_p + torch.exp(logs_p) * eps * temperature) * x_mask
         z = self.flow.reverse(z_p, x_mask, g=g)
-        o = self.dec(z * x_mask, nsff0, g=g, generator=generator)
+        if self.use_f0:
+            o = self.dec(z * x_mask, nsff0, g=g, generator=generator)
+        else:
+            o = self.dec(z * x_mask, g=g)
         return o.transpose(1, 2), x_mask.transpose(1, 2)
 
     @staticmethod
@@ -80,9 +94,11 @@ class Synthesizer(nn.Module):
             upsample_initial_channel=m.upsample_initial_channel,
             upsample_kernel_sizes=m.upsample_kernel_sizes,
             spk_embed_dim=m.spk_embed_dim, gin_channels=m.gin_channels,
-            sr=cfg.data.sample_rate, text_enc_hidden_dim=m.text_enc_hidden_dim)
+            sr=cfg.data.sample_rate, text_enc_hidden_dim=m.text_enc_hidden_dim,
+            use_f0=m.use_f0)
         kw.update(overrides)
-        if m.vocoder != "HiFi-GAN" or not m.use_f0:
+        if m.vocoder != "HiFi-GAN":
             raise NotImplementedError(
-                "the port covers the pitch-guided NSF-HiFi-GAN decoder only")
+                f"the {m.vocoder!r} vocoder is not ported yet (ROADMAP A.9); "
+                "the port covers the HiFi-GAN decoders, with and without pitch")
         return Synthesizer(**kw).to(dev).eval()

@@ -126,7 +126,14 @@ class FeatureIndex:
 
     @classmethod
     def load(cls, path: str, device: Union[str, torch.device] = "cuda"):
-        """Load a ``.npz`` index with key ``vectors``."""
+        """Load a native ``.npz`` index (key ``vectors``) or a reference
+        faiss ``.index`` file (IndexFlat or IndexIVFFlat)."""
+        with open(path, "rb") as f:
+            magic = f.read(4)
+        if magic[:2] != b"PK":  # not a zip archive: one of the faiss formats
+            from ..utils.faiss_io import read_index_vectors
+
+            return cls(read_index_vectors(path), device=device)
         with np.load(path) as data:
             return cls(data["vectors"], device=device)
 

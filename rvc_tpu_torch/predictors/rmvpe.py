@@ -1,7 +1,9 @@
 """RMVPE pitch estimator (port of ``rvc_tpu/predictors/rmvpe.py``): a
 DeepUnet over the [T, 128] log-mel image, a 3-channel conv head, a BiGRU
 (384 -> 2 x 256) and a 360-bin sigmoid salience, decoded to f0 by the
-9-tap local average of cents.
+9-tap local average of cents. ``RMVPE`` is the host-facing predictor: the
+reference ``rmvpe.pt`` in, audio in, f0 out (``infer_from_audio``), in the
+model's own float32.
 
 Activations are NCHW ([B, C, T, mel]); module names follow the reference
 ``E2E`` state-dict layout that ``convert_torch_rmvpe`` reads, except the
@@ -11,8 +13,9 @@ b_hn inside the recurrent term. Batch norm uses its running statistics."""
 
 from __future__ import annotations
 
-from typing import Union
+from typing import Dict, List, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -20,6 +23,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.mel import mel_filterbank
 from ..ops.stft import stft_magnitude
+from .bucketing import bucket_samples, reflect_to
 from .cents import weighted_cents_decode
 
 N_MELS = 128
@@ -224,10 +228,70 @@ def decode_salience(salience: torch.Tensor, thred: float = 0.03) -> torch.Tensor
     return torch.where(f0 == 10.0, torch.zeros_like(f0), f0)
 
 
+def state_dict_from_torch_rmvpe(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The reference ``rmvpe.pt`` state_dict -> the port's ``E2EModel``
+    state_dict. Every module but the BiGRU carries the reference's names;
+    the ``nn.GRU`` weights (gates r, z, n stacked) become ``FusedBiGRU``'s
+    transposed ``wi``/``wh``, with ``b_hh``'s r and z parts folded into the
+    input bias and its n part kept as ``bhn``; the hidden width is read from
+    ``weight_hh_l0``."""
+    out = {k: v.float() for k, v in sd.items()
+           if not k.endswith("num_batches_tracked") and not k.startswith("fc.0.gru.")}
+    g = "fc.0.gru"
+    h = sd[f"{g}.weight_hh_l0"].shape[1]
+    for sfx, tag in (("", "fwd"), ("_reverse", "bwd")):
+        w_ih = sd[f"{g}.weight_ih_l0{sfx}"].float()
+        w_hh = sd[f"{g}.weight_hh_l0{sfx}"].float()
+        b_ih = sd[f"{g}.bias_ih_l0{sfx}"].float()
+        b_hh = sd[f"{g}.bias_hh_l0{sfx}"].float()
+        bi = b_ih.clone()
+        bi[:2 * h] = bi[:2 * h] + b_hh[:2 * h]
+        out[f"{g}.wi_{tag}"] = w_ih.T.contiguous()
+        out[f"{g}.bi_{tag}"] = bi
+        out[f"{g}.wh_{tag}"] = w_hh.T.contiguous()
+        out[f"{g}.bhn_{tag}"] = b_hh[2 * h:].clone()
+    return out
+
+
 class RMVPE:
-    """Holder of an ``E2EModel`` on a device, as the pipeline attaches it."""
+    """Host-facing predictor: an ``E2EModel`` on a device, audio in, f0 out.
+
+    The model stays in float32; a pipeline serving in bf16 runs a bf16 copy
+    of it in its fused graph (``Pipeline.set_rmvpe``)."""
 
     def __init__(self, model: E2EModel = None,
                  device: Union[str, torch.device] = "cuda"):
         self.device = resolve_device(device)
         self.model = (model or E2EModel()).to(self.device).eval()
+
+    @classmethod
+    def from_torch_checkpoint(cls, path: str,
+                              device: Union[str, torch.device] = "cuda") -> "RMVPE":
+        """Load the reference ``rmvpe.pt`` (an ``E2E`` state_dict)."""
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        model = E2EModel()
+        model.load_state_dict(state_dict_from_torch_rmvpe(sd), strict=True)
+        return cls(model, device)
+
+    def infer_from_audio(self, audio: np.ndarray, thred: float = 0.03) -> np.ndarray:
+        """[T] 16 kHz audio -> f0 [T // 160 + 1] (centered STFT frames)."""
+        return self.infer_batch([np.asarray(audio, np.float32)], thred)[0]
+
+    @torch.no_grad()
+    def infer_batch(self, audios: List[np.ndarray],
+                    thred: float = 0.03) -> List[np.ndarray]:
+        """Several waveforms in one batch: reflect-padded to the group's
+        1 s bucket, the true frame counts sliced after."""
+        t_pad = bucket_samples(max(len(a) for a in audios))
+        batch = np.stack([reflect_to(np.asarray(a, np.float32), t_pad)
+                          for a in audios])
+        n_frames = t_pad // HOP + 1
+        dtype = next(self.model.parameters()).dtype
+        mel = rmvpe_mel(torch.from_numpy(batch).to(self.device))[:, :n_frames]
+        pad = (-n_frames) % 32
+        if pad:
+            mel = F.pad(mel.transpose(1, 2), (0, pad), mode="reflect").transpose(1, 2)
+        hidden = self.model(mel.to(dtype)).float()
+        f0 = torch.stack([decode_salience(h, thred) for h in hidden[:, :n_frames]])
+        f0 = f0.cpu().numpy()
+        return [f0[i, : len(a) // HOP + 1] for i, a in enumerate(audios)]

@@ -1,0 +1,200 @@
+"""Model files: the reference's ``.pth`` and the JAX package's ``.npz``
+(port of the loading half of ``rvc_tpu/utils/checkpoints.py``).
+
+The port's synthesizer already carries the reference torch module names, so
+``load_rvc_pth`` returns a ``state_dict`` in that layout (float32) and the
+file's metadata, not a parameter tree. ``build_synthesizer`` rebuilds the
+architecture the file records (``derive_synth_arch``) and loads the weights
+strictly: only the posterior encoder (``enc_q.*``, training only) is
+skipped; any other key that the model lacks, or that the file lacks, raises.
+"""
+
+from __future__ import annotations
+
+import json
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..configs import get_config
+from ..device import resolve_device
+
+StateDict = Dict[str, torch.Tensor]
+
+META_KEYS = ("config", "sr", "f0", "version", "vocoder", "embedder_model",
+             "speakers_id", "author", "model_hash", "epoch", "step")
+# the first ConvTranspose's kernel size is unique per sample rate
+_SR_BY_UP0_KERNEL = {20: 32000, 16: 40000, 24: 48000}
+
+
+def normalize_weight_norm_keys(sd: Dict[str, Any]) -> Dict[str, Any]:
+    """Map ``parametrizations.weight.original{0,1}`` to ``weight_g/weight_v``."""
+    out = {}
+    for k, v in sd.items():
+        k = k.replace(".parametrizations.weight.original0", ".weight_g")
+        k = k.replace(".parametrizations.weight.original1", ".weight_v")
+        out[k] = v
+    return out
+
+
+def normalize_sr(sr: Union[str, int, float, None]) -> Union[int, str, float, None]:
+    """"48k" -> 48000; other values pass through."""
+    if isinstance(sr, str) and sr.lower().endswith("k"):
+        try:
+            return int(float(sr[:-1]) * 1000)
+        except ValueError:
+            return sr
+    return sr
+
+
+def load_rvc_pth(path: str) -> Tuple[StateDict, Dict[str, Any]]:
+    """Read a reference ``.pth``: (float32 state_dict in the port's layout
+    without ``enc_q.*``, metadata).
+
+    A deployable file keeps fp16 tensors under ``"weight"`` beside the
+    18-element ``"config"`` list and the metadata fields; a full training
+    checkpoint keeps them under ``"model"`` with no config and no sample
+    rate, which then comes from the kernel size of ``dec.ups.0``. A
+    discriminator checkpoint is refused."""
+    cpt = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(cpt, dict) and "weight" in cpt:
+        weights = cpt["weight"]
+    elif isinstance(cpt, dict) and "model" in cpt:
+        weights = cpt["model"]
+    else:
+        weights = cpt
+    weights = {k: v for k, v in weights.items() if torch.is_tensor(v)}
+    if any(k.startswith("discriminators.") for k in weights):
+        raise ValueError(f"{path} is a discriminator checkpoint, not a voice model")
+    sd = {k: (v.float() if torch.is_floating_point(v) else v)
+          for k, v in normalize_weight_norm_keys(weights).items()
+          if not k.startswith("enc_q.")}
+    meta = {k: cpt.get(k) for k in META_KEYS} if isinstance(cpt, dict) else {}
+    if not meta.get("sr"):
+        for key in ("dec.ups.0.weight_v", "dec.ups.0.weight"):
+            if key in sd:
+                sr = _SR_BY_UP0_KERNEL.get(int(sd[key].shape[-1]))
+                if sr is not None:
+                    meta["sr"] = sr
+                    print(f"load_rvc_pth: inferred sample_rate={sr} from decoder "
+                          "shapes (checkpoint carries no sr metadata)")
+                break
+    return sd, meta
+
+
+def derive_synth_arch(sd: StateDict, meta: Dict[str, Any]
+                      ) -> Tuple[Dict[str, Any], Optional[int]]:
+    """Architecture overrides for rebuilding a synthesizer around loaded
+    weights: the 18-element config list, as the reference reads it
+    positionally, and the content-feature width from ``enc_p.emb_phone``
+    (256 for v1 models, whose HuBERT then needs ``final_proj``). The flow's
+    WaveNet depth is not in the list: each coupling's ``cond_layer`` emits
+    2 x hidden x layers channels. Returns (``get_config`` overrides,
+    flow layers or None)."""
+    over: Dict[str, Any] = {}
+    cfg_list = meta.get("config") or []
+    if len(cfg_list) == 18:
+        try:
+            over = dict(
+                filter_length=(int(cfg_list[0]) - 1) * 2,
+                inter_channels=int(cfg_list[2]),
+                hidden_channels=int(cfg_list[3]),
+                filter_channels=int(cfg_list[4]),
+                n_heads=int(cfg_list[5]),
+                n_layers=int(cfg_list[6]),
+                kernel_size=int(cfg_list[7]),
+                p_dropout=float(cfg_list[8]),
+                resblock_kernel_sizes=tuple(int(k) for k in cfg_list[10]),
+                resblock_dilation_sizes=tuple(
+                    tuple(int(d) for d in t) for t in cfg_list[11]),
+                upsample_rates=tuple(int(r) for r in cfg_list[12]),
+                upsample_initial_channel=int(cfg_list[13]),
+                upsample_kernel_sizes=tuple(int(k) for k in cfg_list[14]),
+                spk_embed_dim=int(cfg_list[15]),
+                gin_channels=int(cfg_list[16]),
+            )
+        except (TypeError, ValueError):
+            over = {}
+    if "enc_p.emb_phone.weight" in sd:
+        over["text_enc_hidden_dim"] = int(sd["enc_p.emb_phone.weight"].shape[1])
+    flow_layers = None
+    pre, cond = "flow.flows.0.pre.weight", "flow.flows.0.enc.cond_layer.weight_v"
+    if pre in sd and cond in sd:
+        hidden, cond_out = int(sd[pre].shape[0]), int(sd[cond].shape[0])
+        if hidden > 0 and cond_out % (2 * hidden) == 0:
+            flow_layers = cond_out // (2 * hidden)
+    return over, flow_layers
+
+
+def _fold_plain_weights(sd: StateDict, expected) -> StateDict:
+    """A weight-normalized module's weight stored plain (``X.weight``) ->
+    ``X.weight_v`` = the weight, ``X.weight_g`` = its norm over every axis
+    but the first, so the module's effective weight is the stored one."""
+    out = dict(sd)
+    for k, w in sd.items():
+        base = k[:-len(".weight")]
+        if (k.endswith(".weight") and k not in expected
+                and f"{base}.weight_v" in expected):
+            out.pop(k)
+            axes = tuple(range(1, w.ndim))
+            out[f"{base}.weight_v"] = w
+            out[f"{base}.weight_g"] = torch.sqrt(
+                torch.sum(w * w, dim=axes, keepdim=True) + 1e-12)
+    return out
+
+
+def build_synthesizer(sd: StateDict, meta: Dict[str, Any],
+                      device: Union[str, torch.device] = "cuda"):
+    """Rebuild the synthesizer a loaded file records and load its weights
+    strictly. Returns (model on ``device``, ExperimentConfig, use_f0)."""
+    from ..models.synthesizer import Synthesizer
+
+    dev = resolve_device(device)
+    sr = normalize_sr(meta.get("sample_rate", meta.get("sr")))
+    tgt_sr = int(sr) if sr else 48000
+    vocoder = meta.get("vocoder") or "HiFi-GAN"
+    # full training checkpoints carry f0=None: pitch guidance unless 0
+    f0_meta = meta.get("f0")
+    use_f0 = bool(1 if f0_meta is None else f0_meta)
+    arch, flow_layers = derive_synth_arch(sd, meta)
+    arch.setdefault("spk_embed_dim", int(meta.get("speakers_id") or 109))
+    cfg = get_config(tgt_sr, vocoder=vocoder, use_f0=use_f0, **arch)
+    extra = {} if flow_layers is None else {"flow_layers": flow_layers}
+    model = Synthesizer.from_config(cfg, device="cpu", **extra)
+    expected = model.state_dict()
+    sd = _fold_plain_weights(sd, expected)
+    missing = sorted(set(expected) - set(sd))
+    unexpected = sorted(set(sd) - set(expected))
+    if missing or unexpected:
+        raise ValueError(f"model file does not fit the architecture it records: "
+                         f"missing {missing[:8]}, unexpected {unexpected[:8]}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(expected[k].shape):
+            raise ValueError(f"{k}: file shape {tuple(v.shape)} != model shape "
+                             f"{tuple(expected[k].shape)}")
+    model.load_state_dict(sd, strict=True)
+    return model.to(dev).eval(), cfg, use_f0
+
+
+def _unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for key, v in flat.items():
+        node = tree
+        parts = key.split("/")
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Read the JAX package's native ``.npz``: (parameter tree of numpy
+    arrays, metadata from its ``__meta__`` JSON). A synthesizer's tree goes
+    through ``convert.synthesizer_state_dict``."""
+    with np.load(path, allow_pickle=False) as data:
+        flat = {k: data[k] for k in data.files if k != "__meta__"}
+        meta = {}
+        if "__meta__" in data.files:
+            meta = json.loads(bytes(data["__meta__"]).decode("utf-8"))
+    return _unflatten(flat), meta

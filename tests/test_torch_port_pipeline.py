@@ -182,6 +182,12 @@ def test_port_imports_no_jax():
     for root, _, fs in os.walk(os.path.join(REPO, "rvc_tpu_torch")):
         files += [os.path.join(root, f) for f in fs if f.endswith(".py")]
     assert len(files) > 20
+    rel = {os.path.relpath(f, REPO) for f in files}
+    for mod in ("cli.py", "infer/converter.py", "infer/pipeline.py",
+                "utils/checkpoints.py", "utils/faiss_io.py", "utils/audio_io.py",
+                "utils/native.py", "utils/split_audio.py", "predictors/bucketing.py",
+                "predictors/f0_extractor.py", "models/generators/hifigan.py"):
+        assert f"rvc_tpu_torch/{mod}" in rel, mod
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
