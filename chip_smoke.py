@@ -50,6 +50,7 @@ the result line. There is no CPU fallback: without CUDA the script fails.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import re
@@ -207,11 +208,14 @@ def _err(ref, out):
     return abs_err, abs_err / max(ref.abs().max().item(), 1e-12)
 
 
-def record_path_shapes(fn):
+def record_path_shapes(fn, grad_shapes=None):
     """Run fn() with the decoder's stage tails and the retrieval search
     wrapped to record the shapes the main path gives the kernels:
     [("stage", C, T, dtype, kernel sizes, dilations, batch)] and
-    [("knn", Q, N, D, k)]."""
+    [("knn", Q, N, D, k)]. Stage shapes met with gradients on (a training
+    step's) are also appended to ``grad_shapes`` when given."""
+    import torch
+
     from rvc_tpu_torch.models.generators import nsf
     from rvc_tpu_torch.ops import retrieval as rt
 
@@ -222,6 +226,8 @@ def record_path_shapes(fn):
         shapes.append(("stage", x.shape[1], x.shape[2], x.dtype,
                        tuple(blk.kernel_size for blk in blocks),
                        tuple(blocks[0].dilations), x.shape[0]))
+        if grad_shapes is not None and torch.is_grad_enabled():
+            grad_shapes.append(shapes[-1])
         return stage(x, blocks, cache)
 
     def knn_hook(q, v, k=8):
@@ -245,13 +251,23 @@ def _shape_key(shape):
     return tuple(shape)
 
 
-def phase_kernels(paths):
+def bound(nbytes, flops_by_peak):
+    """(bound ms, bytes ms, operations ms): bytes over the memory rate,
+    FLOP over the peak of the unit that does them."""
+    b_ms = 1e3 * nbytes / PEAK_BYTES
+    o_ms = 1e3 * sum(f / p for f, p in flops_by_peak)
+    return max(b_ms, o_ms), b_ms, o_ms
+
+
+def phase_kernels(paths, grad_uses=None):
     """K1/K2/K3 against their plain versions at the shapes each path gave
     them (``paths``: path name -> shapes from record_path_shapes; a shape
     that several paths or launches share is checked once), in the path's
     dtype and in f32, then at the shapes off the path. The wrappers get a
     weight cache, as the modules give them, so the times are the kernels'.
-    Returns per-path, per-kernel records summed over each path's launches."""
+    Returns per-path, per-kernel records summed over each path's launches.
+    ``grad_uses`` (stage shape key -> calls per training step) adds the
+    gradient checks of ``phase_kernel_grads``."""
     import torch
 
     from rvc_tpu_torch.models.generators.nsf import MRF_MAX_CHANNELS
@@ -269,13 +285,6 @@ def phase_kernels(paths):
                       "library_ms": 0.0}
                   for n in ("mrf_stage", "resblock_chain", "knn_topk")}
            for path in paths}
-
-    def bound(nbytes, flops_by_peak):
-        """(bound ms, bytes ms, operations ms): bytes over the memory rate,
-        FLOP over the peak of the unit that does them."""
-        b_ms = 1e3 * nbytes / PEAK_BYTES
-        o_ms = 1e3 * sum(f / p for f, p in flops_by_peak)
-        return max(b_ms, o_ms), b_ms, o_ms
 
     def check(name, key, fn, plain, lib, ref_out, tol, bnd, on_paths):
         out = fn()
@@ -371,8 +380,11 @@ def phase_kernels(paths):
                     [(3 * 2.0 * 2 * len(dil) * k * c * c * t, PEAK_TF32)]), {})
         del ch, x
 
+    if grad_uses:
+        phase_kernel_grads(grad_uses, gen)
+
     knn_uses = [(k[1:], n) for k, n in uses.items() if k[0] == "knn"]
-    require(knn_uses, "the main path made no retrieval search")
+    require(knn_uses or "pipeline" not in paths, "the main path made no retrieval search")
     for (n_q, n_v, d, k), on_paths in knn_uses + [(s, {}) for s in EXTRA_KNN_SHAPES]:
         q = torch.randn((n_q, d), generator=gen).to(dev)
         v = torch.randn((n_v, d), generator=gen).to(dev)
@@ -401,6 +413,108 @@ def phase_kernels(paths):
                              else "bytes")
     emit({"phase": "kernels_by_path", "paths": rec})
     return rec
+
+
+def phase_kernel_grads(grad_uses, gen):
+    """K1 and K2 at the training step's shapes, through their autograd
+    Functions: the forward against the plain version (largest error over
+    the largest value) and the gradient with respect to x and every folded
+    weight and bias against the plain version's autograd gradient (norm of
+    the error over the norm, per tensor), in bf16 and f32. In the path's dtype
+    (bf16) it times, per stage and per step, the kernel's forward, the
+    Functions' backward (the plain-conv recompute, as the JAX package's
+    custom_vjp; no hand-written kernel), the plain version's forward and
+    backward, and cuDNN's bf16 chain forward and backward, beside their
+    bounds (the backward: recompute + input and weight gradients, 3x the
+    forward's products)."""
+    import torch
+
+    from rvc_tpu_torch.models.generators.nsf import MRF_MAX_CHANNELS
+    from rvc_tpu_torch.ops import resblock as rb
+
+    dev = torch.device("cuda")
+    per_step = {n: collections.Counter() for n in ("mrf_stage", "resblock_chain")}
+    for key, calls in grad_uses.items():
+        _, c, t, path_dtype, ks, dil, b = key
+        chains32 = [_rand_chain(gen, c, k, dev, dil) for k in ks]
+        x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
+        cot32 = torch.randn((b, c, t), generator=gen).to(dev)
+        name = "mrf_stage" if c <= MRF_MAX_CHANNELS else "resblock_chain"
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            x = x32.to(dtype).requires_grad_()
+            chains = [[[w.to(dtype).requires_grad_() for w in part] for part in ch]
+                      for ch in chains32]
+            flat = [x] + [w for ch in chains for part in ch for w in part]
+            cot = cot32.to(dtype)
+            caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
+            if name == "mrf_stage":
+                def kernel():
+                    return rb.mrf_stage(x, chains, ks, dil, cache=caches[-1])
+
+                def plain():
+                    return rb.mrf_stage_plain(x, chains, dil)
+            else:  # the wide stage: each chain through K2, then the mean
+                def kernel():
+                    return sum(rb.resblock_chain(x, *ch, dil, cache=cc)
+                               for ch, cc in zip(chains, caches)) / len(chains)
+
+                def plain():
+                    return sum(rb.resblock_chain_plain(x, *ch, dil)
+                               for ch in chains) / len(chains)
+
+            def library():
+                return sum(_library_chain(x, ch, dil) for ch in chains) / len(chains)
+
+            out, ref = kernel(), plain()
+            grads = torch.autograd.grad(out, flat, cot, retain_graph=True)
+            ref_grads = torch.autograd.grad(ref, flat, cot, retain_graph=True)
+            torch.cuda.synchronize()
+            fwd_rel = _err(ref, out)[1]
+            # per tensor ||g - g_ref|| / ||g_ref||, the worst tensor: in bf16
+            # a leaky ReLU whose input rounds across 0 changes that element's
+            # gradient tenfold, so the largest element's error is the wrong
+            # yardstick (it is reported beside). The bf16 backward rounds the
+            # state and every conv output to bf16, as JAX's recompute does,
+            # against an f32 plain version: about 4e-2 apart at the training
+            # shapes; a cut or wrong gradient is about 1 apart
+            grad_rel = max(float(torch.linalg.vector_norm((g - r).float())
+                                 / torch.linalg.vector_norm(r.float()).clamp(min=1e-30))
+                           for r, g in zip(ref_grads, grads))
+            grad_max_rel = max(_err(r, g)[1] for r, g in zip(ref_grads, grads))
+            fwd_tol, grad_tol = (2e-2, 1e-1) if dtype == torch.bfloat16 else (1e-4, 1e-4)
+            row = {"kernel": name, "B": b, "C": c, "T": t, "dtype": dname,
+                   "fwd_rel_err": fwd_rel, "fwd_tol": fwd_tol,
+                   "grad_norm_rel_err": grad_rel, "grad_tol": grad_tol,
+                   "grad_max_abs_over_max_ref": grad_max_rel, "calls_per_step": calls}
+            if dname == path_dtype:
+                flops = 2.0 * b * sum(2 * len(dil) * k * c * c * t for k in ks)
+                wbytes = sum(2 * len(dil) * k * c * c for k in ks) * 2
+                xbytes = x.numel() * 2
+                with torch.no_grad():
+                    row["fwd_ms"] = gpu_time_ms(kernel)
+                row["fwd_bound_ms"] = bound(2 * xbytes + wbytes,
+                                            [(flops, PEAK_BF16)] if name == "mrf_stage"
+                                            else [(3 * flops, PEAK_TF32)])[0]
+                row["bwd_recompute_ms"] = gpu_time_ms(
+                    lambda: torch.autograd.grad(out, flat, cot, retain_graph=True))
+                row["bwd_bound_ms"] = bound(3 * xbytes + 2 * wbytes,
+                                            [(3 * flops, PEAK_BF16)])[0]
+                row["plain_fwd_bwd_ms"] = gpu_time_ms(
+                    lambda: torch.autograd.grad(plain(), flat, cot), 3)
+                row["cudnn_fwd_bwd_ms"] = gpu_time_ms(
+                    lambda: torch.autograd.grad(library(), flat, cot), 3)
+                for f in ("fwd_ms", "fwd_bound_ms", "bwd_recompute_ms", "bwd_bound_ms",
+                          "plain_fwd_bwd_ms", "cudnn_fwd_bwd_ms"):
+                    per_step[name][f] += calls * row[f]
+            emit({"phase": "kernel_grad_check", **row})
+            require(fwd_rel <= fwd_tol and grad_rel <= grad_tol,
+                    f"{name} B={b} C={c} T={t} {dname}: forward {fwd_rel}, gradient {grad_rel}")
+            del out, ref, grads, ref_grads, x, chains, flat
+        del chains32, x32, cot32
+        torch.cuda.empty_cache()
+    emit({"phase": "train_kernels_per_step",
+          "per_step": {n: dict(v) for n, v in per_step.items()}})
 
 
 def _fill_random(module, rng, scale=0.02):
@@ -685,28 +799,6 @@ def phase_trace(run, smi: str):
 
 # -- the user's entry points: model files, the CLI, long inputs, folders -------
 
-def _config_list(cfg) -> list:
-    """The reference's 18-element config list of a configuration."""
-    d, m = cfg.data, cfg.model
-    return [d.filter_length // 2 + 1, 17280 // d.hop_length, m.inter_channels,
-            m.hidden_channels, m.filter_channels, m.n_heads, m.n_layers,
-            m.kernel_size, m.p_dropout, "1", list(m.resblock_kernel_sizes),
-            [list(t) for t in m.resblock_dilation_sizes], list(m.upsample_rates),
-            m.upsample_initial_channel, list(m.upsample_kernel_sizes),
-            m.spk_embed_dim, m.gin_channels, d.sample_rate]
-
-
-def _write_pth(path, model, cfg, f0: int) -> None:
-    """A deployable reference .pth: fp16 tensors under "weight", the config
-    list and the metadata fields."""
-    import torch
-
-    weight = {k: v.detach().cpu().half() for k, v in model.state_dict().items()}
-    torch.save({"weight": weight, "config": _config_list(cfg),
-                "sr": cfg.data.sample_rate, "f0": f0, "version": "v2",
-                "vocoder": "HiFi-GAN", "epoch": 0, "step": 0}, path)
-
-
 def _reference_rmvpe(e2e) -> dict:
     """The port's E2EModel in the reference rmvpe.pt layout: ``nn.GRU``
     weights (gates r, z, n stacked; the folded r/z bias kept in b_ih) and
@@ -757,7 +849,7 @@ def phase_files(smi: str, root: str) -> dict:
     from rvc_tpu_torch.models.commons import weight_norm
     from rvc_tpu_torch.ops.retrieval import FeatureIndex
     from rvc_tpu_torch.predictors.rmvpe import RMVPE
-    from rvc_tpu_torch.utils.checkpoints import build_synthesizer, load_rvc_pth
+    from rvc_tpu_torch.utils.checkpoints import build_synthesizer, export_rvc_pth, load_rvc_pth
     from rvc_tpu_torch.utils.faiss_io import write_index_flat
 
     t0 = time.perf_counter()
@@ -775,8 +867,8 @@ def phase_files(smi: str, root: str) -> dict:
                                       "pytorch_model.bin")}
     for key in ("rmvpe", "embedder"):
         os.makedirs(os.path.dirname(paths[key]), exist_ok=True)
-    _write_pth(paths["pth"], synth, cfg, 1)
-    _write_pth(paths["pth_nof0"], synth0, cfg0, 0)
+    export_rvc_pth(synth, paths["pth"], cfg)
+    export_rvc_pth(synth0, paths["pth_nof0"], cfg0)
     write_index_flat(paths["index"], index)
     torch.save(_reference_rmvpe(rmvpe.model), paths["rmvpe"])
     torch.save(_hf_hubert(hub), paths["embedder"])
@@ -1113,6 +1205,396 @@ def phase_nof0(smi: str, paths: dict, root: str):
     return counts, shapes
 
 
+# -- training: the 48 kHz GAN trainer through the CLI -------------------------
+
+TRAIN_CLIPS = 40
+TRAIN_SEGMENT = 17280   # samples of a training slice (36 latent frames)
+TRAIN_BATCH = 8
+
+
+def _write_train_dataset(exp: str, rng) -> None:
+    """40 clips of 2-8 s at 48 kHz (float WAV), features [T50, 768], coarse
+    f0 in 1..255 and f0 in Hz, and filelist.txt with rows
+    wav|feats.npy|f0.npy|f0nsf.npy|sid, in the layout train/data.py reads."""
+    from rvc_tpu_torch.utils.audio_io import write_wav
+
+    rows = []
+    for i in range(TRAIN_CLIPS):
+        frames = int(rng.integers(200, 801))
+        tt = np.arange(frames * 480) / 48000
+        f0_hz = 120.0 + 80.0 * rng.random()
+        wav = 0.3 * np.sin(2 * np.pi * f0_hz * tt) + 0.02 * rng.normal(size=tt.size)
+        base = os.path.join(exp, f"clip{i:02d}")
+        write_wav(base + ".wav", wav.astype(np.float32), 48000, "FLOAT")
+        f0 = np.full(frames, f0_hz, np.float32)
+        np.save(base + ".feats.npy", rng.normal(size=(frames // 2 + 1, 768)).astype(np.float32))
+        np.save(base + ".f0.npy", rng.integers(1, 256, size=frames).astype(np.int64))
+        np.save(base + ".f0nsf.npy", f0)
+        rows.append(f"{base}.wav|{base}.feats.npy|{base}.f0.npy|{base}.f0nsf.npy|{i % 2}")
+    with open(os.path.join(exp, "filelist.txt"), "w") as f:
+        f.write("\n".join(rows) + "\n")
+
+
+class _TrainProbe:
+    """Patches the trainer for one CLI run: per step its metrics, its K1/K2
+    launches, CUDA events at the step's parts (``TrainStep.mark``), the
+    memory held and the peak; the first step's per-module gradient norms
+    (``debug_grads``); the parameters right after a resume; the trainer."""
+
+    def __init__(self):
+        self.steps, self.resumed, self.trainer = [], None, None
+
+    def __enter__(self):
+        import torch
+
+        from rvc_tpu_torch.ops import resblock as rb
+        from rvc_tpu_torch.train.step import TrainStep
+        from rvc_tpu_torch.train.trainer import Trainer
+
+        self.saved = [(TrainStep, "__call__", TrainStep.__call__),
+                      (Trainer, "_resume", Trainer._resume),
+                      (Trainer, "init_state", Trainer.init_state)]
+        orig_call, orig_resume, orig_init = (f for _, _, f in self.saved)
+        probe = self
+
+        def call(step, batch, *a, **k):
+            events = []
+
+            def mark(name):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append((name, ev))
+
+            step.mark = mark
+            step.debug_grads = not probe.steps  # the first step of the run
+            before = dict(rb.launches)
+            torch.cuda.reset_peak_memory_stats()
+            out = orig_call(step, batch, *a, **k)
+            probe.steps.append({
+                "metrics": out, "events": events, "frames": int(batch["phone"].shape[1]),
+                "launches": {n: rb.launches[n] - before[n] for n in before},
+                "peak": torch.cuda.max_memory_allocated(),
+                "held": torch.cuda.memory_allocated()})
+            step.debug_grads, step.mark = False, None
+            return out
+
+        def resume(trainer, g_path, d_path):
+            orig_resume(trainer, g_path, d_path)
+            probe.resumed = {"g_path": g_path, "d_path": d_path, "step": trainer.step,
+                             "start_epoch": trainer.start_epoch,
+                             "spe": trainer.steps_per_epoch,
+                             "g": {k: v.detach().cpu().clone()
+                                   for k, v in trainer.model_g.state_dict().items()},
+                             "d": {k: v.detach().cpu().clone()
+                                   for k, v in trainer.model_d.state_dict().items()}}
+
+        def init_state(trainer):
+            probe.trainer = trainer
+            orig_init(trainer)
+
+        TrainStep.__call__, Trainer._resume, Trainer.init_state = call, resume, init_state
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self.saved:
+            setattr(cls, name, fn)
+
+
+def _step_parts_ms(step):
+    """(G forward, D update, G losses + backward + optimizer, whole) device
+    ms of one probed step."""
+    ev = dict(step["events"])
+    parts = [("g_forward", "d_update"), ("d_update", "g_update"), ("g_update", "end")]
+    ms = [ev[a].elapsed_time(ev[b]) for a, b in parts]
+    return ms + [ev["g_forward"].elapsed_time(ev["end"])]
+
+
+# the small model of phase `small_train`: hop 64 (two x8 upsamples), stages
+# of 32 and 16 channels, two chains of two dilations
+SMALL_TRAIN_MODEL = dict(inter_channels=8, hidden_channels=8, filter_channels=16,
+                         n_heads=2, n_layers=1, resblock_kernel_sizes=(3, 5),
+                         resblock_dilation_sizes=((1, 3), (1, 3)),
+                         upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
+                         upsample_initial_channel=64, spk_embed_dim=4, gin_channels=8)
+
+
+def _small_train_step(device: str, bf16: bool):
+    """One step of a small model (the CPU tests' widths, full MPD) from
+    weights of seed 5, a seeded batch and fixed slice starts: (metrics,
+    G and D state_dicts on the host)."""
+    import dataclasses
+
+    import torch
+
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+    from rvc_tpu_torch.models.synthesizer import Synthesizer
+    from rvc_tpu_torch.train.optimizers import module_optimizer
+    from rvc_tpu_torch.train.step import TrainStep
+    from rvc_tpu_torch.train.trainer import init_parameters
+
+    cfg = get_config(48000)
+    cfg = dataclasses.replace(
+        cfg, data=dataclasses.replace(cfg.data, filter_length=256, hop_length=64,
+                                      win_length=256),
+        model=dataclasses.replace(cfg.model, **SMALL_TRAIN_MODEL),
+        train=dataclasses.replace(cfg.train, segment_size=64 * 40, bf16_run=bf16))
+    g = Synthesizer.from_config(cfg, device=device, train=True, posterior_layers=2,
+                                flow_layers=2, zero_noise=True)
+    d = MultiPeriodDiscriminator().to(device)
+    gen = torch.Generator().manual_seed(5)
+    init_parameters(g, gen)
+    init_parameters(d, gen)
+    step = TrainStep(cfg, g, d, module_optimizer("adamw", g, 1e-4),
+                     module_optimizer("adamw", d, 1e-4), debug_grads=True)
+    rng = np.random.default_rng(6)
+    b, t = 2, 48
+    tt = np.arange(t * 64) / 48000
+    batch = {"phone": rng.normal(size=(b, t, 768)).astype(np.float32),
+             "phone_lengths": np.array([t, t - 4], np.int32),
+             "pitch": rng.integers(1, 256, size=(b, t)).astype(np.int64),
+             "pitchf": np.full((b, t), 200.0, np.float32),
+             "spec": np.abs(rng.normal(size=(b, t, 129))).astype(np.float32),
+             "spec_lengths": np.array([t, t - 4], np.int32),
+             "wave": (0.3 * np.sin(2 * np.pi * 200 * tt)[None, :, None]
+                      + 0.02 * rng.normal(size=(b, t * 64, 1))).astype(np.float32),
+             "sid": np.array([0, 1], np.int64)}
+    batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    _reset_counts()
+    metrics = step(batch, ids_slice=torch.tensor([3, 1], dtype=torch.int32, device=device))
+    counts = _counts()
+    return ({k: float(v) for k, v in metrics.items()}, counts,
+            {k: v.detach().cpu() for k, v in g.state_dict().items()},
+            {k: v.detach().cpu() for k, v in d.state_dict().items()})
+
+
+def phase_small_train(smi: str):
+    """One training step of a small model on the card (K2 through the stage
+    tails in fp32, K1 in bf16) against the same step on the CPU (plain
+    versions), from the same weights, batch and slice starts: in fp32 the
+    losses and the updated parameters, in bf16 the losses and the gradient
+    norm of every module (bf16 rounds in other places on the two devices)."""
+    cpu_m, _, cpu_g, cpu_d = _small_train_step("cpu", False)
+    gpu_m, counts, gpu_g, gpu_d = _small_train_step("cuda", False)
+    cpu_bf, _, _, _ = _small_train_step("cpu", True)
+    gpu_bf, bf_counts, _, _ = _small_train_step("cuda", True)
+
+    def rel(ref, got, keys):
+        return {k: abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-3) for k in keys}
+
+    losses = [k for k in cpu_m if k.startswith("loss") or k == "mel_similarity_pct"]
+    norms = [k for k in cpu_m if k.startswith(("gsub_", "grad_norm"))]
+    loss_rel, bf_loss_rel = rel(cpu_m, gpu_m, losses), rel(cpu_bf, gpu_bf, losses)
+    bf_norm_rel = rel(cpu_bf, gpu_bf, norms)
+    lr = 1e-4
+    worst, off, total = 0.0, 0, 0
+    for ref, got in ((cpu_g, gpu_g), (cpu_d, gpu_d)):
+        for k, v in ref.items():
+            diff = (got[k].float() - v.float()).abs()
+            worst = max(worst, float(diff.max()))
+            off += int((diff > 1e-5).sum())
+            total += diff.numel()
+    emit({"phase": "small_train", "gpu": smi, "fp32_loss_rel_err_vs_cpu": loss_rel,
+          "loss_tol": 1e-3, "fp32_param_max_abs_err_vs_cpu": worst,
+          "fp32_param_share_beyond_1e-5": off / total,
+          "param_tol": "all <= 2 lr; <= 1% beyond 1e-5",
+          "bf16_loss_rel_err_vs_cpu": bf_loss_rel, "bf16_loss_tol": 5e-3,
+          "bf16_grad_norm_rel_err_vs_cpu": bf_norm_rel, "bf16_grad_norm_tol": 1e-1,
+          "launches_fp32": counts, "launches_bf16": bf_counts})
+    require(max(loss_rel.values()) <= 1e-3,
+            f"small train step: fp32 card vs CPU losses {loss_rel}")
+    require(worst <= 2 * lr + 1e-6 and off <= 0.01 * total,
+            f"small train step: params differ by {worst} ({off}/{total} beyond 1e-5)")
+    require(max(bf_loss_rel.values()) <= 5e-3 and max(bf_norm_rel.values()) <= 1e-1,
+            f"small train step: bf16 card vs CPU losses {bf_loss_rel}, norms {bf_norm_rel}")
+    require(counts["resblock_chain"] > 0 and bf_counts["mrf_stage"] > 0,
+            f"small train step: kernels not launched ({counts}, {bf_counts})")
+
+
+def phase_train(smi: str, root: str):
+    """The CLI's ``train`` on the card at full width (get_config(48000),
+    bf16, batch 8, 17280-sample slices, from the seed's weights): 3 epochs
+    saving every epoch, then a second call to 4 that resumes; then the
+    exported ``<name>_3e.pth`` converts 10 s through ``VoiceConverter``."""
+    import torch
+
+    from rvc_tpu_torch.utils.audio_io import write_wav
+
+    held_before = torch.cuda.memory_allocated()  # earlier phases' models
+    rng = np.random.default_rng(0)
+    exp = os.path.join(root, "logs", "smoke")
+    os.makedirs(exp, exist_ok=True)
+    _write_train_dataset(exp, rng)
+    argv = ["train", "--model_name", "smoke", "--sample_rate", "48000",
+            "--save_every_epoch", "1", "--pretrained", "False",
+            "--batch_size", str(TRAIN_BATCH), "--save_only_latest", "True"]
+    grad_shapes = []
+    _reset_counts()
+    with _TrainProbe() as first:
+        t0 = time.perf_counter()
+        shapes = record_path_shapes(lambda: _cli(argv + ["--total_epoch", "3"], root),
+                                    grad_shapes)
+        first_wall = time.perf_counter() - t0
+    counts = _counts()
+    spe = first.trainer.steps_per_epoch
+    keep = {k: v.detach().cpu().clone() for k, v in first.trainer.model_g.state_dict().items()}
+    first.trainer = None  # free the first call's models before the second
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the checkpoints the first call saved (the second call overwrites them)
+    saved_g, saved_d = (torch.load(os.path.join(exp, f"{n}_2333333.pth"), map_location="cpu",
+                                   weights_only=True)["model"] for n in ("G", "D"))
+    with _TrainProbe() as second:
+        _cli(argv + ["--total_epoch", "4"], root)
+    steps = first.steps + second.steps
+    trainer = second.trainer
+
+    # every step: finite losses, K1 and K2 launched
+    for i, st in enumerate(steps):
+        m = {k: float(v) for k, v in st["metrics"].items()}
+        require(all(np.isfinite(v) for v in m.values()), f"train step {i}: {m}")
+        require(st["launches"]["mrf_stage"] > 0 and st["launches"]["resblock_chain"] > 0,
+                f"train step {i}: K1/K2 launches {st['launches']}")
+    require(len(first.steps) == 3 * spe and len(second.steps) == spe,
+            f"{len(first.steps)} + {len(second.steps)} steps, not 4 x {spe}")
+    # the first step reached every parameter group of G and D
+    gsub = {k: float(v) for k, v in first.steps[0]["metrics"].items() if k.startswith("gsub_")}
+    groups = (["gsub_g/" + n for n in ("enc_p", "enc_q", "flow", "emb_g", "dec.conv_pre",
+                                       "dec.ups", "dec.noise_convs", "dec.conv_post",
+                                       "dec.m_source")]
+              + [f"gsub_g/dec.resblocks.stage{i}" for i in range(4)]
+              + ["gsub_d/disc_s"] + [f"gsub_d/disc_p{p}" for p in (2, 3, 5, 7, 11, 17, 23, 37)])
+    for name in groups:
+        v = gsub.get(name, float("nan"))
+        require(np.isfinite(v) and v > 0, f"gradient norm of {name} after step 1: {v}")
+    # resume: at epoch 4, step 3 x steps per epoch, with the saved parameters
+    res = second.resumed
+    require(res is not None and res["start_epoch"] == 4 and res["step"] == 3 * spe,
+            f"resume: {res and (res['start_epoch'], res['step'])}, spe {spe}")
+    for name, got, want in (("G", res["g"], saved_g), ("D", res["d"], saved_d)):
+        bad = [k for k in want if not torch.equal(got[k], want[k])]
+        require(not bad and got.keys() == want.keys(), f"resumed {name} differs: {bad[:4]}")
+    bad = [k for k in keep if not torch.equal(keep[k], saved_g[k])]
+    require(not bad, f"the saved G is not the trained one: {bad[:4]}")
+    recs = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+    val = [r for r in recs if "validation/loss/mel_l1" in r]
+    epochs = [r for r in recs if "epoch/epoch_seconds" in r]
+    require(len(val) == 4 and all(np.isfinite(v) for r in val for v in r.values()),
+            f"validation metrics: {val}")
+
+    # train, then convert 10 s on the card with the exported model
+    wav = os.path.join(root, "train_conv_in.wav")
+    audio = _audio(10.0, np.random.default_rng(9))
+    write_wav(wav, audio, 16000)
+    out = os.path.join(root, "train_conv_out.wav")
+    with _Probe() as probe:
+        _cli(["infer", "--input_path", wav, "--output_path", out, "--pth_path",
+              os.path.join(exp, "smoke_3e.pth"), "--f0_method", "rmvpe"], root)
+    audio = audio / max(np.abs(audio).max() / 0.95, 1.0)
+    data = _check_wav(out, _windowed_len(probe.pipe, audio), "train then convert")
+
+    # numbers: device time of the step's parts over warm steps, memory, rate
+    warm = [st for st in first.steps[2:]]
+    parts = np.array([_step_parts_ms(st) for st in warm])
+    med = np.median(parts, axis=0)
+    # memory, per call and bucket: a bucket's first step also holds cuDNN's
+    # autotuning workspace; its later steps must hold and peak at the same
+    # bytes (nothing of an earlier step's graph survives). The first
+    # validation builds the decoder's inference weight caches (about 50 MB,
+    # kept from then on), so the steps before and after it are apart.
+    by_bucket = collections.defaultdict(list)
+    for call, run in enumerate((first.steps, second.steps)):
+        for i, st in enumerate(run):
+            by_bucket[(call, min(i // spe, 1), st["frames"])].append(st)
+    peak_spread = held_spread = 0.0
+    for runs in by_bucket.values():
+        later = runs[1:]
+        if len(later) > 1:
+            peaks, held = [st["peak"] for st in later], [st["held"] for st in later]
+            peak_spread = max(peak_spread, (max(peaks) - min(peaks)) / max(peaks))
+            held_spread = max(held_spread, max(held) - min(held))
+    idle = _profile_train_step(trainer)
+    audio_per_step = TRAIN_BATCH * TRAIN_SEGMENT / 48000
+    rates = [r["epoch/steps_per_sec"] * audio_per_step for r in epochs[:3]]
+    emit({"phase": "train", "gpu": smi, "steps_per_epoch": spe, "steps": len(steps),
+          "launches": counts, "launches_per_step": steps[-1]["launches"],
+          "ms_per_step_median": float(med[3]), "ms_g_forward": float(med[0]),
+          "ms_d_update": float(med[1]), "ms_g_backward_and_optimizer": float(med[2]),
+          "ms_per_step_all": [float(v) for v in parts[:, 3]],
+          "audio_s_per_wall_s_by_epoch": rates,
+          "epoch_wall_s": [r["epoch/epoch_seconds"] for r in epochs],
+          "first_call_wall_s": first_wall,
+          "peak_gb_by_bucket": {f"call{k[0]}_T{k[2]}": max(st["peak"] for st in v) / 2 ** 30
+                                for k, v in sorted(by_bucket.items())},
+          "peak_gb_by_step": [st["peak"] / 2 ** 30 for st in steps],
+          "held_gb_by_step": [st["held"] / 2 ** 30 for st in steps],
+          "peak_spread_within_bucket": peak_spread, "held_spread_bytes": held_spread,
+          "held_before_train_gb": held_before / 2 ** 30,
+          "device_idle_share_one_step": idle["idle_share"], "trace": idle,
+          "first_step_grad_norms": gsub,
+          "validation": val[-1], "resumed_at": res["start_epoch"],
+          "convert_samples": int(data.shape[0]),
+          "kernel_shapes": [[str(v) if isinstance(v, torch.dtype) else v for v in sh]
+                            for sh in shapes]})
+    require(peak_spread <= 0.02, f"peak memory of one bucket varies by {peak_spread}")
+    require(held_spread <= 16 << 20, f"memory held after a step grows by {held_spread} B")
+    n_steps = len(first.steps)
+    del trainer, first, second
+    torch.cuda.empty_cache()
+    return counts, shapes, grad_shapes, n_steps
+
+
+def _cuda_switches(values=None):
+    """The CUDA switches the ``train`` CLI sets as the reference does (TF32,
+    cuDNN autotuning and determinism): their values, or set them back."""
+    import torch
+
+    names = [(torch.backends.cuda.matmul, "allow_tf32"), (torch.backends.cudnn, "allow_tf32"),
+             (torch.backends.cudnn, "benchmark"), (torch.backends.cudnn, "deterministic")]
+    if values is None:
+        return [getattr(mod, n) for mod, n in names]
+    for (mod, n), v in zip(names, values):
+        setattr(mod, n, v)
+    return values
+
+
+def _profile_train_step(trainer) -> dict:
+    """One warm training step under torch.profiler: device busy time and
+    idle share over the step's wall time, and the heaviest kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = {k: torch.from_numpy(v).cuda() for k, v in next(trainer.batcher(epoch=1)).items()}
+    gen = torch.Generator().manual_seed(0)
+    trainer.step_fn(batch, gen)  # warm at this shape
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_fn(batch, gen)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(
+            e, "self_cuda_time_total", 0)
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    top = sorted(events, key=dev_us, reverse=True)[:12]
+    host = sorted((e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:10]
+    require(busy_ms > 0, "the profiled training step shows no device time")
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms, "frames": int(batch["phone"].shape[1]),
+            "device_kernels": sum(e.count for e in events),
+            "top": [{"name": e.key[:90], "ms": dev_us(e) / 1e3, "count": e.count}
+                    for e in top],
+            "host_top": [{"name": e.key[:60], "self_ms": e.self_cpu_time_total / 1e3,
+                          "count": e.count} for e in host]}
+
+
 KERNEL_META = {
     "mrf_stage": ("rvc_tpu_torch/csrc/resblock.cu", "rvc_tpu/ops/resblock_pallas.py:437"),
     "resblock_chain": ("rvc_tpu_torch/csrc/resblock_chain.cu",
@@ -1130,7 +1612,7 @@ def main(argv) -> int:
         return 2
     phases = argv[1].split(",") if len(argv) > 1 else [
         "env", "build", "small", "pipeline", "stream", "files", "windowed", "batch",
-        "nof0", "kernels", "stages"]
+        "nof0", "train", "kernels", "stages"]
     sys.path.insert(0, REPO)
     import rvc_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -1156,8 +1638,17 @@ def main(argv) -> int:
                 phase = {"windowed": phase_windowed, "batch": phase_batch,
                          "nof0": phase_nof0}[name]
                 launches[name], path_shapes[name] = phase(smi, files, root)
+        grad_uses = None
+        if "train" in phases:
+            phase_small_train(smi)
+            switches = _cuda_switches()
+            launches["train"], path_shapes["train"], grad_shapes, n_steps = phase_train(
+                smi, root)
+            _cuda_switches(switches)  # later phases time cuDNN as earlier PRs did
+            grad_uses = {k: n / n_steps for k, n in
+                         collections.Counter(map(_shape_key, grad_shapes)).items()}
         if "kernels" in phases and path_shapes:  # at the shapes the paths gave
-            rec = phase_kernels(path_shapes).get("pipeline", {})
+            rec = phase_kernels(path_shapes, grad_uses).get("pipeline", {})
         if "pipeline" in phases and "stages" in phases:
             phase_stages(pipe, audio, index, smi)
         if "pipeline" in phases and "trace" in phases:

@@ -1,22 +1,29 @@
-"""Command line of the port: the ``infer`` and ``batch_infer`` subcommands
-(port of ``rvc_tpu/cli.py``'s), run on the card.
+"""Command line of the port: the ``infer``, ``batch_infer`` and ``train``
+subcommands (port of ``rvc_tpu/cli.py``'s), run on the card.
 
     python -m rvc_tpu_torch.cli infer --input_path in.wav --output_path out.wav \\
         --pth_path model.pth --index_path model.index [--device cuda]
     python -m rvc_tpu_torch.cli batch_infer --input_folder in/ --output_folder out/ \\
         --pth_path model.pth
+    python -m rvc_tpu_torch.cli train --model_name m --sample_rate 48000 \\
+        [--total_epoch 200 --batch_size 8 --save_every_epoch 10 ...]
 
-The parser is the port's own copy of the JAX CLI's argument surface for
-these subcommands, flag for flag, so that a command line written for it
-parses unchanged; ``--device`` (default ``cuda``) is added. Options the port
-does not serve yet (f0 methods other than ``rmvpe``, formant shifting, the
-post-FX chain, ``--clean_audio``, formats other than WAV) raise
-``NotImplementedError`` when set. ``main(argv)`` returns the exit code.
+``train`` runs from the directory that holds ``logs/<model_name>/filelist.txt``
+and writes its checkpoints there. The parser is the port's own copy of the
+JAX CLI's argument surface for these subcommands, flag for flag, so that a
+command line written for it parses unchanged; ``--device`` (default
+``cuda``) is added. Options the port does not serve yet raise
+``NotImplementedError`` naming their ROADMAP item when set (for inference:
+f0 methods other than ``rmvpe``, formant shifting, the post-FX chain,
+``--clean_audio``, formats other than WAV; for training: discriminators
+other than ``mpd``, ``--use_orbax``, several ``--gpu`` indices, vocoders
+other than HiFi-GAN). ``main(argv)`` returns the exit code.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 
@@ -95,6 +102,107 @@ def _add_infer_args(p: argparse.ArgumentParser) -> None:
                         "'cpu' runs the kernels' plain versions)")
 
 
+def pretrained_selector(vocoder: str, sample_rate: int) -> tuple:
+    """Default pretrained G/D for a vocoder and rate, where staged: under
+    models/pretraineds/<vocoder-lower>/ and then models/pretraineds/, the
+    pair f0{G,D}<sr/1000>k as .npz or .pth; ("", "") when absent (training
+    then starts from the seed's weights, as the reference does)."""
+    sr_tag = str(sample_rate)[:2]
+    for base in (os.path.join("models", "pretraineds", vocoder.lower()),
+                 os.path.join("models", "pretraineds")):
+        for ext in (".npz", ".pth"):
+            path_g = os.path.join(base, f"f0G{sr_tag}k{ext}")
+            path_d = os.path.join(base, f"f0D{sr_tag}k{ext}")
+            if os.path.exists(path_g) and os.path.exists(path_d):
+                return path_g, path_d
+    return "", ""
+
+
+def cleanup_previous_run(exp_dir: str) -> int:
+    """A fresh start (reference train.py:377-403): remove a previous
+    attempt's checkpoints, index, metrics and event files; keep the dataset
+    (filelist, features, wavs). Returns how many entries went."""
+    import shutil
+
+    removed = 0
+    if not os.path.isdir(exp_dir):
+        return 0
+    for fn in os.listdir(exp_dir):
+        if (fn.startswith(("G_", "D_", "orbax_", "reference_e"))
+                or fn.endswith((".index.npz", ".index"))
+                or fn in ("metrics.jsonl", "heartbeat.json", "train_error.log")
+                or fn.startswith("events.out.tfevents")):
+            path = os.path.join(exp_dir, fn)
+            try:
+                if os.path.isdir(path):
+                    shutil.rmtree(path)
+                else:
+                    os.remove(path)
+                removed += 1
+            except OSError as e:
+                print(f"cleanup: could not remove {path} ({e})")
+    print(f"cleanup: removed {removed} previous-attempt artifact(s)")
+    return removed
+
+
+def _add_train_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model_name", type=str, required=True)
+    p.add_argument("--sample_rate", type=int, required=True,
+                   choices=[32000, 40000, 48000])
+    p.add_argument("--vocoder", type=str, default="HiFi-GAN",
+                   choices=["HiFi-GAN", "MRF HiFi-GAN", "RefineGAN"])
+    p.add_argument("--total_epoch", type=int, default=200)
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--save_every_epoch", type=int, default=10)
+    p.add_argument("--save_only_latest", type=_bool, default=False)
+    p.add_argument("--pretrained", type=_bool, default=True)
+    p.add_argument("--g_pretrained_path", type=str, default="")
+    p.add_argument("--d_pretrained_path", type=str, default="")
+    p.add_argument("--optimizer", type=str, default="AdamW",
+                   choices=["AdamW", "RAdam", "Ranger21"])
+    p.add_argument("--use_warmup", type=_bool, default=False)
+    p.add_argument("--warmup_duration", type=int, default=5)
+    p.add_argument("--use_multiscale_mel_loss", type=_bool, default=True)
+    p.add_argument("--double_d_update", type=_bool, default=False)
+    p.add_argument("--use_balancer", type=_bool, default=False)
+    p.add_argument("--use_wgan_gp_loss", type=_bool, default=False)
+    p.add_argument("--bf16_run", type=_bool, default=True)
+    p.add_argument("--checkpointing", type=_bool, default=False)
+    p.add_argument("--use_orbax", type=_bool, default=False,
+                   help="the JAX package's sharded checkpoints (not in the port)")
+    p.add_argument("--discriminators", type=str, default="mpd",
+                   help="comma list; the port trains with mpd")
+    p.add_argument("--index_algorithm", type=str, default="Auto")
+    p.add_argument("--cleanup", type=_bool, default=False,
+                   help="remove previous-attempt checkpoints/index/metrics "
+                        "before training (reference train.py:377-403)")
+    p.add_argument("--cache_data_in_gpu", type=_bool, default=False,
+                   help="keep the padded dataset resident on the card")
+    p.add_argument("--use_checkpointing", dest="checkpointing", type=_bool,
+                   default=argparse.SUPPRESS,
+                   help="alias of --checkpointing (reference flag name)")
+    p.add_argument("--custom_pretrained", type=_bool, default=False,
+                   help="use --g_pretrained_path/--d_pretrained_path instead "
+                        "of the staged defaults (reference core.py:530-539)")
+    p.add_argument("--use_custom_lr", type=_bool, default=False)
+    p.add_argument("--custom_lr_g", type=float, default=None)
+    p.add_argument("--custom_lr_d", type=float, default=None)
+    p.add_argument("--save_every_weights", type=_bool, default=True,
+                   help="export the deployable weights file on every save "
+                        "epoch (final epoch always exports)")
+    p.add_argument("--gpu", type=str, default="",
+                   help="dash-separated card indices (the port trains on one)")
+    p.add_argument("--use_tf32", type=_bool, default=False,
+                   help="TensorFloat-32 in float32 matmuls and convolutions")
+    p.add_argument("--use_benchmark", type=_bool, default=True,
+                   help="cudnn.benchmark: cuDNN picks its algorithms by timing")
+    p.add_argument("--use_deterministic", type=_bool, default=False,
+                   help="cudnn.deterministic and deterministic algorithms")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to train on (the card by default; "
+                        "'cpu' runs the kernels' plain versions)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="rvc_tpu_torch",
@@ -108,6 +216,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_folder", type=str, required=True)
     p.add_argument("--output_folder", type=str, required=True)
     _add_infer_args(p)
+    p = sub.add_parser("train", help="Train a model")
+    _add_train_args(p)
     return parser
 
 
@@ -118,8 +228,77 @@ def collect_infer_kwargs(args) -> dict:
     return kw
 
 
+def train_config(args):
+    """The ExperimentConfig a ``train`` command line asks for."""
+    import dataclasses
+
+    from .configs import get_config
+
+    cfg = get_config(args.sample_rate, vocoder=args.vocoder)
+    return dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=args.batch_size, optimizer=args.optimizer.lower(),
+        use_multiscale_mel=args.use_multiscale_mel_loss,
+        double_d_update=args.double_d_update, use_balancer=args.use_balancer,
+        use_wgan=args.use_wgan_gp_loss, bf16_run=args.bf16_run,
+        use_checkpointing=args.checkpointing,
+        warmup_epochs=args.warmup_duration if args.use_warmup else 0))
+
+
+def trainer_args(args):
+    """The TrainerArgs of a ``train`` command line (pretrained files chosen
+    as the JAX CLI chooses them)."""
+    from .train.trainer import TrainerArgs
+
+    pretrain_g, pretrain_d = args.g_pretrained_path, args.d_pretrained_path
+    if args.pretrained and args.custom_pretrained and not (pretrain_g and pretrain_d):
+        raise SystemExit("custom_pretrained requires --g_pretrained_path and "
+                         "--d_pretrained_path")
+    if args.pretrained and not args.custom_pretrained and not (pretrain_g or pretrain_d):
+        pretrain_g, pretrain_d = pretrained_selector(args.vocoder, args.sample_rate)
+    if args.use_custom_lr and (args.custom_lr_g is None or args.custom_lr_d is None):
+        raise SystemExit("use_custom_lr requires --custom_lr_g and --custom_lr_d")
+    device_indices = (tuple(int(i) for i in args.gpu.split("-") if i != "")
+                      if args.gpu else None)
+    return TrainerArgs(
+        exp_dir=os.path.join("logs", args.model_name),
+        discriminators=args.discriminators, use_orbax=args.use_orbax,
+        cache_data=args.cache_data_in_gpu, total_epochs=args.total_epoch,
+        save_every_epoch=args.save_every_epoch,
+        save_only_latest=args.save_only_latest,
+        save_every_weights=args.save_every_weights,
+        lr_g=args.custom_lr_g if args.use_custom_lr else None,
+        lr_d=args.custom_lr_d if args.use_custom_lr else None,
+        device_indices=device_indices,
+        pretrain_g=pretrain_g if args.pretrained else "",
+        pretrain_d=pretrain_d if args.pretrained else "", device=args.device)
+
+
+def _train(args) -> None:
+    import torch
+
+    from .train.trainer import Trainer
+
+    if args.cleanup:
+        cleanup_previous_run(os.path.join("logs", args.model_name))
+    cfg, targs = train_config(args), trainer_args(args)
+    # the reference's CUDA switches (train.py): TF32, cuDNN autotuning and
+    # determinism
+    torch.backends.cuda.matmul.allow_tf32 = args.use_tf32
+    torch.backends.cudnn.allow_tf32 = args.use_tf32
+    torch.backends.cudnn.benchmark = args.use_benchmark
+    torch.backends.cudnn.deterministic = args.use_deterministic
+    if args.use_deterministic:
+        torch.use_deterministic_algorithms(True, warn_only=True)
+    Trainer(cfg, targs).fit()
+    print("index: building the retrieval index after training waits for "
+          "ROADMAP A.12; use the JAX package's `index` subcommand")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.mode == "train":
+        _train(args)
+        return 0
     from .infer.converter import VoiceConverter
 
     vc = VoiceConverter(precision=args.precision, device=args.device)

@@ -1,5 +1,5 @@
 from .config import (SAMPLE_RATES, DataConfig, ExperimentConfig, ModelConfig,
-                     get_config)
+                     TrainConfig, get_config)
 
 __all__ = ["SAMPLE_RATES", "DataConfig", "ExperimentConfig", "ModelConfig",
-           "get_config"]
+           "TrainConfig", "get_config"]

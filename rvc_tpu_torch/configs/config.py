@@ -1,8 +1,8 @@
 """Hyperparameter presets for the three supported sample rates.
 
-A copy of the inference subset of ``rvc_tpu/configs/config.py`` (the port
-imports nothing of the JAX package): frozen dataclasses, one preset per
-sample rate, field overrides through ``get_config``.
+A copy of ``rvc_tpu/configs/config.py``'s data, model and training sections
+(the port imports nothing of the JAX package): frozen dataclasses, one
+preset per sample rate, field overrides through ``get_config``.
 """
 
 from __future__ import annotations
@@ -54,9 +54,29 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 1e-4
+    bf16_run: bool = True
+    lr_decay: float = 0.999875
+    segment_size: int = 17280          # samples of raw audio per training slice
+    c_mel: float = 45.0
+    c_kl: float = 1.0
+    c_fm: float = 2.0
+    batch_size: int = 8
+    optimizer: str = "adamw"           # "adamw" | "radam" | "ranger21"
+    double_d_update: bool = False
+    use_multiscale_mel: bool = True
+    use_wgan: bool = False
+    use_balancer: bool = False
+    warmup_epochs: int = 0
+    use_checkpointing: bool = False    # recompute the generator forward (memory)
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
     @property
     def sample_rate(self) -> int:
@@ -102,7 +122,7 @@ def get_config(sample_rate: int, vocoder: str = "HiFi-GAN",
     cfg = _PRESETS[sample_rate]
     model = dataclasses.replace(cfg.model, vocoder=vocoder, use_f0=use_f0)
     cfg = dataclasses.replace(cfg, model=model)
-    for section_name in ("data", "model"):
+    for section_name in ("data", "model", "train"):
         section = getattr(cfg, section_name)
         keys = {f.name for f in dataclasses.fields(section)}
         upd = {k: v for k, v in overrides.items() if k in keys}

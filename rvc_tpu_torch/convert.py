@@ -78,12 +78,18 @@ def _wavenet(sd, prefix: str, p: Tree) -> None:
             weight_norm=True)
 
 
-def synthesizer_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+def synthesizer_state_dict(params: Tree,
+                           posterior: bool = False) -> Dict[str, torch.Tensor]:
     """flax ``Synthesizer`` params (NSF decoder, or the plain HiFi-GAN
     decoder of a model without pitch: no ``emb_pitch``, ``m_source`` or
-    ``noise_convs``) -> the port's ``Synthesizer`` state_dict (the posterior
-    encoder is skipped)."""
+    ``noise_convs``) -> the port's ``Synthesizer`` state_dict. The
+    posterior encoder (``enc_q``) comes across with ``posterior``, for a
+    model built to train."""
     sd: Dict[str, torch.Tensor] = {}
+    if posterior:
+        _conv1d(sd, "enc_q.pre", params["enc_q"]["pre"])
+        _wavenet(sd, "enc_q.enc", params["enc_q"]["enc"])
+        _conv1d(sd, "enc_q.proj", params["enc_q"]["proj"])
     enc = params["enc_p"]
     _dense(sd, "enc_p.emb_phone", enc["emb_phone"])
     if "emb_pitch" in enc:
@@ -141,6 +147,39 @@ def synthesizer_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
                         weight_norm=True)
                 c += 1
     sd["emb_g.weight"] = _t(params["emb_g"]["embedding"])
+    return sd
+
+
+def _conv2d_wn(sd, prefix: str, p: Tree) -> None:
+    """A flax HWIO conv -> torch [out, in, kh, kw] (weight-normalized when
+    the tree has ``g``)."""
+    w = np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))
+    if "g" in p:
+        sd[f"{prefix}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1, 1))
+        sd[f"{prefix}.weight_v"] = _t(w)
+    else:
+        sd[f"{prefix}.weight"] = _t(w)
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def mpd_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """flax ``MultiPeriodDiscriminator`` params (weight or spectral norm) ->
+    the port's ``MultiPeriodDiscriminator`` state_dict: the reference torch
+    layout (``discriminators.0`` the scale discriminator, then one per
+    period in the order of ``periods``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    s = params["disc_s"]
+    for i in range(6):
+        _conv1d(sd, f"discriminators.0.convs.{i}", s[f"conv_{i}"],
+                weight_norm="g" in s[f"conv_{i}"])
+    _conv1d(sd, "discriminators.0.conv_post", s["conv_post"],
+            weight_norm="g" in s["conv_post"])
+    periods = sorted(int(k[len("disc_p"):]) for k in params if k.startswith("disc_p"))
+    for j, per in enumerate(periods, start=1):
+        d = params[f"disc_p{per}"]
+        for i in range(5):
+            _conv2d_wn(sd, f"discriminators.{j}.convs.{i}", d[f"conv_{i}"])
+        _conv2d_wn(sd, f"discriminators.{j}.conv_post", d["conv_post"])
     return sd
 
 

@@ -35,6 +35,43 @@ def sequence_mask(lengths: torch.Tensor, max_length: int) -> torch.Tensor:
     return (pos < lengths[:, None]).float()
 
 
+def slice_segments(x: torch.Tensor, ids_str: torch.Tensor,
+                   segment_size: int) -> torch.Tensor:
+    """Fixed-size time slices per batch element: x [B, T, ...], ids_str [B]
+    start frames (clamped to [0, T - segment_size]) -> [B, segment_size,
+    ...]. The gather's gradient scatters back into x."""
+    starts = torch.clamp(ids_str.long(), 0, x.shape[1] - segment_size)
+    idx = starts[:, None] + torch.arange(segment_size, device=x.device)[None]
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
+
+
+def rand_slice_starts(lengths: torch.Tensor, segment_size: int,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Per-sample slice starts [B] int32, uniform over [0, length - segment]
+    (reference commons.py:88-103); the uniform draws are made on the
+    generator's device (the host's by default) and moved to the lengths'."""
+    ids_max = torch.clamp(lengths - segment_size + 1, min=1).float()
+    u = torch.rand(lengths.shape[0], generator=generator,
+                   device=generator.device if generator is not None else None)
+    return (u.to(lengths.device) * ids_max).to(torch.int32)
+
+
+def rand_slice_segments(x: torch.Tensor, x_lengths: torch.Tensor,
+                        segment_size: int,
+                        generator: Optional[torch.Generator] = None):
+    """Random per-sample slices of x [B, T, ...]: (slices, starts [B])."""
+    ids_str = rand_slice_starts(x_lengths, segment_size, generator)
+    return slice_segments(x, ids_str, segment_size), ids_str
+
+
+def kl_divergence(m_p: torch.Tensor, logs_p: torch.Tensor, m_q: torch.Tensor,
+                  logs_q: torch.Tensor) -> torch.Tensor:
+    """KL(p || q) per element for diagonal gaussians (commons.py:43-57)."""
+    kl = (logs_q - logs_p) - 0.5
+    return kl + 0.5 * (torch.exp(2.0 * logs_p) + (m_p - m_q) ** 2) * torch.exp(
+        -2.0 * logs_q)
+
+
 def fused_gate(x: torch.Tensor, hidden: int) -> torch.Tensor:
     """tanh(x[:, :H]) * sigmoid(x[:, H:]) over the channel axis (NCT)."""
     return torch.tanh(x[:, :hidden]) * torch.sigmoid(x[:, hidden:])
@@ -111,8 +148,16 @@ class ConvTranspose1d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = weight_norm(self.weight_v, self.weight_g, dim=0)
-        return F.conv_transpose1d(x.to(w.dtype), w, self.bias, self.stride,
-                                  self.padding, self.output_padding)
+        x = x.to(w.dtype)
+        if x.device.type == "cpu" and w.dtype == torch.bfloat16:
+            # PyTorch's CPU bf16 transposed convolution returns a wrong input
+            # gradient at some strides (8 and 12 among them); on bf16 operands
+            # the f32 form is the same product with f32 sums, rounded once
+            return F.conv_transpose1d(x.float(), w.float(), self.bias.float(),
+                                      self.stride, self.padding,
+                                      self.output_padding).to(w.dtype)
+        return F.conv_transpose1d(x, w, self.bias, self.stride, self.padding,
+                                  self.output_padding)
 
 
 class WaveNet(nn.Module):

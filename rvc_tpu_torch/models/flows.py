@@ -1,5 +1,7 @@
-"""Normalizing flow, reverse pass only (port of ``rvc_tpu/models/flows.py``):
-mean-only residual coupling layers with a channel flip between them."""
+"""Normalizing flow (port of ``rvc_tpu/models/flows.py``): mean-only
+residual coupling layers with a channel flip between them; ``forward``
+maps the posterior z to z_p in training, ``reverse`` the prior sample back
+in inference."""
 
 from __future__ import annotations
 
@@ -22,13 +24,21 @@ class ResidualCouplingLayer(nn.Module):
                            n_layers, gin_channels=gin_channels)
         self.post = Conv1d(hidden_channels, self.half, 1)
 
+    def _mean(self, x0, x_mask, g):
+        h = self.pre(x0) * x_mask
+        h = self.enc(h, x_mask, g=g)
+        return self.post(h) * x_mask
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        x0, x1 = x[:, :self.half], x[:, self.half:]
+        x1 = (self._mean(x0, x_mask, g) + x1) * x_mask
+        return torch.cat([x0, x1], dim=1)
+
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor,
                 g: Optional[torch.Tensor] = None) -> torch.Tensor:
         x0, x1 = x[:, :self.half], x[:, self.half:]
-        h = self.pre(x0) * x_mask
-        h = self.enc(h, x_mask, g=g)
-        m = self.post(h) * x_mask
-        x1 = (x1 - m) * x_mask
+        x1 = (x1 - self._mean(x0, x_mask, g)) * x_mask
         return torch.cat([x0, x1], dim=1)
 
 
@@ -48,6 +58,12 @@ class ResidualCouplingBlock(nn.Module):
                                              n_layers, gin_channels),
                        nn.Identity()]
         self.flows = nn.ModuleList(layers)
+
+    def forward(self, x: torch.Tensor, x_mask: torch.Tensor,
+                g: Optional[torch.Tensor] = None) -> torch.Tensor:
+        for layer in self.flows[0::2]:
+            x = torch.flip(layer(x, x_mask, g=g), dims=[1])
+        return x
 
     def reverse(self, x: torch.Tensor, x_mask: torch.Tensor,
                 g: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -1,8 +1,14 @@
-"""The VITS-style voice-conversion synthesizer, inference subset (port of
-``rvc_tpu/models/synthesizer.py``'s ``Synthesizer.infer`` with the
-HiFi-GAN decoders: NSF for pitch-guided models, plain HiFi-GAN for models
-without pitch): prior sample -> inverse flow -> decode. The posterior
-encoder and the training forward come with the training port."""
+"""The VITS-style voice-conversion synthesizer (port of
+``rvc_tpu/models/synthesizer.py``) with the HiFi-GAN decoders: NSF for
+pitch-guided models, plain HiFi-GAN for models without pitch.
+
+  - ``infer``: prior sample -> inverse flow -> decode;
+  - ``forward`` (training, built with ``posterior=True``): posterior z from
+    the real spectrogram, flow z -> z_p, a latent slice decoded.
+
+A model built for inference has no posterior encoder (``enc_q``), which a
+deployable ``.pth`` does not carry.
+"""
 
 from __future__ import annotations
 
@@ -12,7 +18,8 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .encoders import TextEncoder
+from .commons import rand_slice_segments, slice_segments
+from .encoders import PosteriorEncoder, TextEncoder
 from .flows import ResidualCouplingBlock
 from .generators.hifigan import HiFiGANGenerator
 from .generators.nsf import HiFiGANNSFGenerator
@@ -31,12 +38,21 @@ class Synthesizer(nn.Module):
                  spk_embed_dim: int = 109, gin_channels: int = 256,
                  sr: int = 48000, text_enc_hidden_dim: int = 768,
                  flow_layers: int = 3, zero_noise: bool = False,
-                 use_f0: bool = True):
+                 use_f0: bool = True, posterior: bool = False,
+                 spec_channels: int = 1025, segment_size: int = 36,
+                 posterior_layers: int = 16):
         super().__init__()
         self.zero_noise, self.use_f0 = zero_noise, use_f0
+        self.segment_size = segment_size  # latent frames of a training slice
         self.enc_p = TextEncoder(inter_channels, hidden_channels,
                                  filter_channels, n_heads, n_layers,
                                  kernel_size, text_enc_hidden_dim, use_f0=use_f0)
+        if posterior:
+            self.enc_q = PosteriorEncoder(spec_channels, inter_channels,
+                                          hidden_channels, 5, 1,
+                                          posterior_layers,
+                                          gin_channels=gin_channels,
+                                          zero_noise=zero_noise)
         self.flow = ResidualCouplingBlock(inter_channels, hidden_channels, 5,
                                           1, flow_layers,
                                           gin_channels=gin_channels)
@@ -51,6 +67,40 @@ class Synthesizer(nn.Module):
                 inter_channels, resblock_kernel_sizes, resblock_dilation_sizes,
                 upsample_rates, upsample_initial_channel, upsample_kernel_sizes,
                 gin_channels=gin_channels)
+
+    def forward(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
+                pitch: Optional[torch.Tensor], pitchf: Optional[torch.Tensor],
+                y: torch.Tensor, y_lengths: torch.Tensor, ds: torch.Tensor,
+                ids_slice: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
+        """Training forward. phone [B, T, D], pitch [B, T] int, pitchf [B, T]
+        f0 Hz, y [B, T, spec] linear spectrogram, lengths [B], ds [B] speaker
+        ids; ``ids_slice`` [B] latent slice starts (drawn from ``generator``
+        when None, as the JAX step draws them outside the model). Returns
+        (o [B, segment * upp, 1], ids_slice, x_mask [B, T, 1], y_mask
+        [B, T, 1], (z, z_p, m_p, logs_p, m_q, logs_q) each [B, T, C]): the
+        JAX module's outputs in its layout."""
+        g = self.emb_g(ds)[:, :, None]
+        m_p, logs_p, x_mask = self.enc_p(phone, pitch if self.use_f0 else None,
+                                         phone_lengths)
+        z, m_q, logs_q, y_mask = self.enc_q(y.transpose(1, 2), y_lengths, g=g,
+                                            generator=generator)
+        z_p = self.flow(z, y_mask, g=g)
+        zt = z.transpose(1, 2)
+        if ids_slice is None:
+            z_slice, ids_slice = rand_slice_segments(zt, y_lengths,
+                                                     self.segment_size, generator)
+        else:
+            z_slice = slice_segments(zt, ids_slice, self.segment_size)
+        z_slice = z_slice.transpose(1, 2)
+        if self.use_f0:
+            f0_slice = slice_segments(pitchf, ids_slice, self.segment_size)
+            o = self.dec(z_slice, f0_slice, g=g, generator=generator)
+        else:
+            o = self.dec(z_slice, g=g)
+        vae = tuple(t.transpose(1, 2) for t in (z, z_p, m_p, logs_p, m_q, logs_q))
+        return (o.transpose(1, 2), ids_slice, x_mask.transpose(1, 2),
+                y_mask.transpose(1, 2), vae)
 
     @torch.no_grad()
     def infer(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
@@ -79,9 +129,10 @@ class Synthesizer(nn.Module):
 
     @staticmethod
     def from_config(cfg, device: Union[str, torch.device] = "cuda",
-                    **overrides) -> "Synthesizer":
+                    train: bool = False, **overrides) -> "Synthesizer":
         """Build from an ExperimentConfig on ``device`` (the card by
-        default; raises without one unless ``device="cpu"``)."""
+        default; raises without one unless ``device="cpu"``). ``train``
+        adds the posterior encoder, in train mode."""
         dev = resolve_device(device)
         m = cfg.model
         kw = dict(
@@ -96,9 +147,13 @@ class Synthesizer(nn.Module):
             spk_embed_dim=m.spk_embed_dim, gin_channels=m.gin_channels,
             sr=cfg.data.sample_rate, text_enc_hidden_dim=m.text_enc_hidden_dim,
             use_f0=m.use_f0)
+        if train:
+            kw.update(posterior=True, spec_channels=cfg.data.spec_channels,
+                      segment_size=cfg.train.segment_size // cfg.data.hop_length)
         kw.update(overrides)
         if m.vocoder != "HiFi-GAN":
             raise NotImplementedError(
                 f"the {m.vocoder!r} vocoder is not ported yet (ROADMAP A.9); "
                 "the port covers the HiFi-GAN decoders, with and without pitch")
-        return Synthesizer(**kw).to(dev).eval()
+        model = Synthesizer(**kw).to(dev)
+        return model.train() if train else model.eval()

@@ -1,5 +1,6 @@
-"""Mel filterbank (librosa-compatible), the part of ``rvc_tpu/ops/mel.py``
-that the RMVPE front end uses: htk or slaney mel scale, slaney norm."""
+"""Mel filterbank (librosa-compatible; port of ``rvc_tpu/ops/mel.py``): htk
+or slaney mel scale, slaney norm, for RMVPE's front end and the training
+mels."""
 
 from __future__ import annotations
 

@@ -22,7 +22,14 @@ conv_1 once and each conv_d twice from L2.
 K2 (``csrc/resblock_chain.cu``, wide stages) runs a chain as two launches
 of one ``wgmma`` 3xTF32 conv kernel per dilation; an f32 stage of
 ``mrf_stage`` runs its chains through K2 as well, then takes the mean.
-Forward only: the backward for training comes with the training port.
+
+Both wrappers are ``torch.autograd.Function``s, on the card and on the CPU.
+Their backward is what the JAX package's ``custom_vjp`` does: it recomputes
+the chains through plain convolutions in the input's dtype (``_chain_direct``,
+the counterpart of ``_direct_chain``) and pulls the cotangent back to x and
+to every folded weight and bias, so gradients reach ``weight_v`` and
+``weight_g`` through the weight-norm fold. Neither TPU kernel has a backward
+kernel, so neither has one here.
 """
 
 from __future__ import annotations
@@ -221,11 +228,13 @@ class WeightCache:
         self.builds = 0
 
     def get(self, tensors: Sequence[torch.Tensor], extra, build: Callable):
-        key = (extra, tuple((id(t), t._version, t.data_ptr(), t.dtype, t.device)
-                            for t in tensors))
+        key = (extra, tuple((id(t), t._version, t.data_ptr(), t.dtype, t.device,
+                             tuple(t.shape)) for t in tensors))
         if key != self._key:
             self._value = build()
-            self._key, self._refs = key, list(tensors)
+            # detached: the storage stays alive (no other tensor takes its
+            # address while the key holds it) but no autograd graph does
+            self._key, self._refs = key, [t.detach() for t in tensors]
             self.builds += 1
         return self._value
 
@@ -358,6 +367,81 @@ def _conv_fn():
                   [p, i, p, i, p, i, p, p, i, i, i, i, i, i, i, i, i, i, f, p])
 
 
+def _chain_direct(y, w1s, b1s, w2s, b2s, dilations, slope):
+    """One chain through plain convolutions in y's dtype (weights and biases
+    cast to it), as the JAX package's ``_direct_chain``: the recompute the
+    backward differentiates."""
+    for d, w1, b1, w2, b2 in zip(dilations, w1s, b1s, w2s, b2s):
+        k = w1.shape[-1]
+        m = F.conv1d(_leaky(y, slope), w1.to(y.dtype), b1.to(y.dtype),
+                     padding=(k * d - d) // 2, dilation=d)
+        y = y + F.conv1d(_leaky(m, slope), w2.to(y.dtype), b2.to(y.dtype),
+                         padding=(k - 1) // 2)
+    return y
+
+
+def _mrf_direct(x, chains, dilations, slope):
+    """Mean over chains of ``_chain_direct`` (``_direct_mrf``)."""
+    acc = None
+    for chain in chains:
+        y = _chain_direct(x, *chain, dilations, slope)
+        acc = y if acc is None else acc + y
+    return acc / len(chains)
+
+
+def _unflatten_chains(flat, n_dil: int):
+    """The flat tensor list of ``_chain_tensors`` -> per chain (w1s, b1s,
+    w2s, b2s)."""
+    parts = [list(flat[i:i + n_dil]) for i in range(0, len(flat), n_dil)]
+    return [tuple(parts[i:i + 4]) for i in range(0, len(parts), 4)]
+
+
+def _recompute_grads(ctx, direct, g):
+    """Backward of both Functions: rerun ``direct`` on the saved inputs
+    under autograd and pull the cotangent g back to the inputs that need a
+    gradient (None for the others)."""
+    saved = ctx.saved_tensors
+    need = ctx.needs_input_grad[-len(saved):]
+    with torch.enable_grad():
+        inputs = [t.detach().requires_grad_(n) for t, n in zip(saved, need)]
+        out = direct(inputs[0], inputs[1:])
+        wanted = [t for t, n in zip(inputs, need) if n]
+        got = iter(torch.autograd.grad(out, wanted, g)) if wanted else iter(())
+    return [next(got) if n else None for n in need]
+
+
+class _MrfStage(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, kernel_sizes, dilations, slope, cache, x, *flat):
+        ctx.dilations, ctx.slope = dilations, slope
+        ctx.save_for_backward(x, *flat)
+        return _mrf_stage_forward(x, _unflatten_chains(flat, len(dilations)),
+                                  kernel_sizes, dilations, slope, cache)
+
+    @staticmethod
+    def backward(ctx, g):
+        dil, slope = ctx.dilations, ctx.slope
+        return (None, None, None, None, *_recompute_grads(
+            ctx, lambda x, flat: _mrf_direct(
+                x, _unflatten_chains(flat, len(dil)), dil, slope), g))
+
+
+class _ResblockChain(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, dilations, slope, cache, x, *flat):
+        ctx.dilations, ctx.slope = dilations, slope
+        ctx.save_for_backward(x, *flat)
+        return _resblock_chain_forward(
+            x, *_unflatten_chains(flat, len(dilations))[0], dilations, slope, cache)
+
+    @staticmethod
+    def backward(ctx, g):
+        dil, slope = ctx.dilations, ctx.slope
+        return (None, None, None, *_recompute_grads(
+            ctx, lambda x, flat: _chain_direct(
+                x, *_unflatten_chains(flat, len(dil))[0], dil, slope), g))
+
+
 def mrf_stage(x, chains, kernel_sizes: Sequence[int],
               dilations: Sequence[int], slope: float = 0.1,
               cache: Optional[WeightCache] = None) -> torch.Tensor:
@@ -367,8 +451,14 @@ def mrf_stage(x, chains, kernel_sizes: Sequence[int],
     input is one launch of K1 (bf16 operands into f32 sums). f32 input keeps
     f32 precision: each chain runs through K2's 3xTF32 conv kernel
     (``resblock_chain``, which counts its launches) and the mean is taken in
-    f32. With a ``cache`` the packed weights are kept between calls."""
-    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+    f32. With a ``cache`` the packed weights are kept between calls. The
+    gradient with respect to x and every weight and bias is the plain-conv
+    recompute's (``_MrfStage``)."""
+    return _MrfStage.apply(tuple(kernel_sizes), tuple(dilations), slope, cache,
+                           x, *_chain_tensors(chains))
+
+
+def _mrf_stage_forward(x, chains, kernel_sizes, dilations, slope, cache):
     if x.device.type == "cpu":
         return mrf_stage_plain(x, chains, dilations, slope)
     _check_input(x, "mrf_stage")
@@ -422,8 +512,13 @@ def resblock_chain(x, w1s, b1s, w2s, b2s, dilations: Sequence[int],
     launches of the conv kernel per dilation (conv_d into an f32 scratch,
     then conv_1 with the residual), the state between dilations in f32.
     Each launch adds one to the count. With a ``cache`` the split and
-    packed weights are kept between calls."""
-    dilations = tuple(dilations)
+    packed weights are kept between calls. The gradient is the plain-conv
+    recompute's (``_ResblockChain``)."""
+    return _ResblockChain.apply(tuple(dilations), slope, cache, x,
+                                *_chain_tensors([(w1s, b1s, w2s, b2s)]))
+
+
+def _resblock_chain_forward(x, w1s, b1s, w2s, b2s, dilations, slope, cache):
     if x.device.type == "cpu":
         return resblock_chain_plain(x, w1s, b1s, w2s, b2s, dilations, slope)
     _check_input(x, "resblock_chain")

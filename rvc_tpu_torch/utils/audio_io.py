@@ -56,6 +56,36 @@ def write_wav(path: str, data: np.ndarray, sr: int, subtype: str = "PCM_16") -> 
     wavfile.write(path, sr, out)
 
 
+def wav_frames(path: str) -> Optional[int]:
+    """Frame count of a RIFF WAV from its header alone: the ``data`` chunk's
+    bytes over the ``fmt `` chunk's block align (any sample format); None
+    when the file is not a parseable RIFF WAV."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(12)
+            if len(head) < 12 or head[:4] != b"RIFF" or head[8:12] != b"WAVE":
+                return None
+            block_align = data_size = None
+            while True:
+                hdr = f.read(8)
+                if len(hdr) < 8:
+                    break
+                cid, size = hdr[:4], int.from_bytes(hdr[4:8], "little")
+                if cid == b"fmt " and size >= 16:
+                    fmt = f.read(size + (size & 1))
+                    block_align = int.from_bytes(fmt[12:14], "little")
+                elif cid == b"data":
+                    data_size = size
+                    break
+                else:
+                    f.seek(size + (size & 1), os.SEEK_CUR)
+            if not block_align or data_size is None:
+                return None
+            return data_size // block_align
+    except OSError:
+        return None
+
+
 def to_mono(data: np.ndarray) -> np.ndarray:
     return data.mean(axis=-1) if data.ndim == 2 else data
 

@@ -198,3 +198,58 @@ def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         if "__meta__" in data.files:
             meta = json.loads(bytes(data["__meta__"]).decode("utf-8"))
     return _unflatten(flat), meta
+
+
+def config_list(cfg) -> list:
+    """The reference's 18-element deployable config list of a configuration
+    (extract_model.py; read back positionally by ``derive_synth_arch``)."""
+    d, m = cfg.data, cfg.model
+    return [d.filter_length // 2 + 1, cfg.train.segment_size // d.hop_length,
+            m.inter_channels, m.hidden_channels, m.filter_channels, m.n_heads,
+            m.n_layers, m.kernel_size, m.p_dropout, "1",
+            list(m.resblock_kernel_sizes),
+            [list(t) for t in m.resblock_dilation_sizes], list(m.upsample_rates),
+            m.upsample_initial_channel, list(m.upsample_kernel_sizes),
+            m.spk_embed_dim, m.gin_channels, d.sample_rate]
+
+
+def _cpu_state(module) -> StateDict:
+    return {k: v.detach().float().cpu().clone() for k, v in module.state_dict().items()}
+
+
+def export_rvc_pth(model, path: str, cfg, epoch: int = 0, step: int = 0,
+                   name: Optional[str] = None) -> str:
+    """Write a deployable ``.pth`` in the layout of the JAX package's
+    ``export_rvc_pth`` (reference extract_model.py): fp16 tensors without
+    the posterior encoder under ``"weight"``, the config list and the
+    metadata fields ``load_rvc_pth`` reads."""
+    import datetime
+    import hashlib
+    import os
+
+    weight = {k: v.half() for k, v in _cpu_state(model).items()
+              if not k.startswith("enc_q.")}
+    config = config_list(cfg)
+    sr = cfg.data.sample_rate
+    name = name or os.path.splitext(os.path.basename(path))[0]
+    hash_input = f"{name}-{epoch}-{step}-{sr}-v2-{config}"
+    torch.save({"weight": weight, "config": config, "epoch": epoch, "step": step,
+                "sr": sr, "f0": int(cfg.model.use_f0), "version": "v2",
+                "creation_date": datetime.datetime.now().isoformat(),
+                "model_hash": hashlib.sha256(hash_input.encode()).hexdigest(),
+                "model_name": name, "vocoder": cfg.model.vocoder}, path)
+    return path
+
+
+def export_full_pth(model, path: str, epoch: int, learning_rate: float,
+                    optimizer: Optional[Dict[str, Any]] = None, **extra) -> str:
+    """Write a full training checkpoint in the layout of the JAX package's
+    ``export_rvc_g_pth`` / ``export_rvc_d_pth`` (reference utils.py
+    save_checkpoint): the float32 state_dict under ``"model"`` (a G keeps
+    ``enc_q``), ``"iteration"`` (the epoch), ``"optimizer"`` (here the
+    port's optimizer state, which resume reads back) and
+    ``"learning_rate"``; ``extra`` keys beside them."""
+    torch.save({"model": _cpu_state(model), "iteration": epoch,
+                "optimizer": optimizer or {}, "learning_rate": learning_rate,
+                **extra}, path)
+    return path
