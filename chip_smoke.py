@@ -27,8 +27,25 @@ Phases, in this order, each printing one JSON line:
            four rows; against the same files one by one; a small fp32 model's
            batch on the card against the CPU's plain versions
   nof0     ``infer`` with the model without pitch (plain HiFi-GAN decoder)
+  train    ``train`` at full width (bf16, batch 8, 3 epochs, a resume to 4),
+           per-step losses, K1/K2 launches and gradients, then a conversion
+           with the exported model
+  prep     the dataset path through the CLI: a 10-minute 44.1 kHz dataset
+           (16-bit stereo and float mono takes, one rejected) through
+           ``preprocess`` (effects, noise reduction), ``extract`` (rmvpe,
+           batch 8), one epoch of ``train`` and its index (in a process
+           of its own, with the defaults, then with cuDNN's autotuning
+           off), ``index
+           --index_algorithm KMeans --export_faiss`` (K3 assigns at k = 1),
+           ``infer`` of 10 s with that model and index; ``build_index`` on
+           360 000 x 768 features (25 k-means iterations to 10 000
+           centroids); ``infer`` with crepe, crepe-tiny, fcpe, yin and
+           hybrid[rmvpe+fcpe]; then K3's ms per assignment against its bound
+           and cdist + argmin, and each f0 predictor on the card against the
+           CPU in float32
   kernels  hold each kernel against its plain PyTorch version at the shapes
-           every path recorded (bf16 and f32: T up to 3.2 M, batch 4) and at
+           every path recorded (bf16 and f32: T up to 3.2 M, batch 4; K3 at
+           360 000 x 10 000 x 768 in three 16 384-row chunks) and at
            shapes off the path
            (K1 in bf16 and f32 at batch 2, T = 1, 77, one tile +- 1, 9001,
            C = 16 and a padded C = 48, two chains with two dilations; K2 at
@@ -51,6 +68,7 @@ from __future__ import annotations
 
 import collections
 import gc
+import glob
 import json
 import os
 import re
@@ -88,6 +106,10 @@ EXTRA_STAGE_SHAPES = [
     (2, 16, 9001, (3, 7), (1, 3))]
 EXTRA_CHAIN_SHAPES = [(512, 4099, 7), (48, 3000, 11)]
 EXTRA_KNN_SHAPES = [(799, EXTRA_KNN_N, 768, 8), (301, 5003, 256, 3)]
+# K3 shapes with more [Q, N] distances than this are checked in chunks of
+# KNN_CHECK_ROWS queries
+KNN_DENSE_ELEMS = 1 << 30
+KNN_CHECK_ROWS = 16384
 
 
 def emit(obj) -> None:
@@ -286,13 +308,13 @@ def phase_kernels(paths, grad_uses=None):
                   for n in ("mrf_stage", "resblock_chain", "knn_topk")}
            for path in paths}
 
-    def check(name, key, fn, plain, lib, ref_out, tol, bnd, on_paths):
+    def check(name, key, fn, plain, lib, ref_out, tol, bnd, on_paths, timed=None):
         out = fn()
         ref = ref_out()
         torch.cuda.synchronize()
         abs_err, rel = _err(ref, out)
         row = {"kernel": name, **key, "max_abs_err": abs_err, "rel_err": rel,
-               "tol": tol, "ms": gpu_time_ms(fn), "plain_ms": gpu_time_ms(plain, 3),
+               "tol": tol, "ms": gpu_time_ms(timed or fn), "plain_ms": gpu_time_ms(plain, 3),
                "library_ms": gpu_time_ms(lib, 3), "bound_ms": bnd[0],
                "bound_by": "operations" if bnd[2] >= bnd[1] else "bytes",
                "on_path": dict(on_paths)}
@@ -388,6 +410,10 @@ def phase_kernels(paths, grad_uses=None):
     for (n_q, n_v, d, k), on_paths in knn_uses + [(s, {}) for s in EXTRA_KNN_SHAPES]:
         q = torch.randn((n_q, d), generator=gen).to(dev)
         v = torch.randn((n_v, d), generator=gen).to(dev)
+        if n_q * n_v > KNN_DENSE_ELEMS:
+            _check_knn_chunked(rt, check, q, v, k, on_paths)
+            del q, v
+            continue
         dist, idx = rt.knn_topk(q, v, k)
         ref_d, ref_i = rt.knn_search_plain(q, v, k + 1)
         gap = (ref_d[:, k] - ref_d[:, k - 1]) / ref_d[:, k].abs().clamp(min=1e-12)
@@ -400,7 +426,7 @@ def phase_kernels(paths, grad_uses=None):
                "index_mismatch_rows": bad_rows}
         check("knn_topk", key, lambda: rt.knn_topk(q, v, k)[0],
               lambda: rt.knn_search_plain(q, v, k)[0],
-              lambda: torch.topk(torch.cdist(q, v), k, dim=1, largest=False),
+              lambda: _library_knn(q, v, k),
               lambda: ref_d[:, :k], 1e-4,
               bound(4 * (n_q * d + n_v * d) + 12 * n_q * k,
                     [(3 * 2.0 * n_q * n_v * d, PEAK_TF32)]), on_paths)
@@ -413,6 +439,58 @@ def phase_kernels(paths, grad_uses=None):
                              else "bytes")
     emit({"phase": "kernels_by_path", "paths": rec})
     return rec
+
+
+def _library_knn(q, v, k):
+    """The library yardstick of K3: cdist, then argmin (k = 1) or topk."""
+    import torch
+
+    d = torch.cdist(q, v)
+    return d.argmin(dim=1) if k == 1 else torch.topk(d, k, dim=1, largest=False)
+
+
+def _check_knn_chunked(rt, check, q, v, k, on_paths):
+    """K3 at a shape whose [Q, N] distance matrix the plain version cannot
+    hold (the k-means assignment at a user's scale): the kernel at the full
+    shape, the plain version on three KNN_CHECK_ROWS-row chunks of the
+    queries (the start, the middle, the end). The indices must be equal
+    except where the two candidates' exact (float64) distances lie within
+    1e-5 relative of each other. Timed over the full shape: the kernel in
+    one launch, the plain version and cdist (+ argmin at k = 1) over
+    KNN_CHECK_ROWS-row chunks."""
+    import torch
+
+    n_q, d = q.shape
+    n_v = v.shape[0]
+    starts = (0, (n_q - KNN_CHECK_ROWS) // 2, n_q - KNN_CHECK_ROWS)
+    dist, idx = rt.knn_topk(q, v, k)
+    refs = [rt.knn_search_plain(q[s:s + KNN_CHECK_ROWS], v, k) for s in starts]
+    mismatched = excused = 0
+    for s, (_, ref_i) in zip(starts, refs):
+        got = idx[s:s + KNN_CHECK_ROWS]
+        rows = (torch.sort(got, dim=1).values
+                != torch.sort(ref_i, dim=1).values).any(dim=1).nonzero()[:, 0]
+        if len(rows):
+            qd = q[s + rows].double()[:, None, :]
+            dk = ((qd - v[got[rows]].double()) ** 2).sum(-1).sort(dim=1).values
+            dp = ((qd - v[ref_i[rows]].double()) ** 2).sum(-1).sort(dim=1).values
+            close = ((dk - dp).abs() <= 1e-5 * dp.abs()).all(dim=1)
+            excused += int(close.sum().item())
+            mismatched += int((~close).sum().item())
+    chunks = range(0, n_q, KNN_CHECK_ROWS)
+    check("knn_topk", {"Q": n_q, "N": n_v, "D": d, "k": k,
+                       "checked_rows": len(starts) * KNN_CHECK_ROWS,
+                       "index_ties_within_1e-5": excused,
+                       "index_mismatch_rows": mismatched},
+          lambda: torch.cat([dist[s:s + KNN_CHECK_ROWS] for s in starts]),
+          lambda: [rt.knn_search_plain(q[i:i + KNN_CHECK_ROWS], v, k) for i in chunks],
+          lambda: [_library_knn(q[i:i + KNN_CHECK_ROWS], v, k) for i in chunks],
+          lambda: torch.cat([r[0] for r in refs]), 1e-4,
+          bound(4 * (n_q * d + n_v * d) + 12 * n_q * k,
+                [(3 * 2.0 * n_q * n_v * d, PEAK_TF32)]), on_paths,
+          timed=lambda: rt.knn_topk(q, v, k))
+    require(mismatched == 0, f"knn_topk Q={n_q} N={n_v}: {mismatched} rows with "
+            "other indices, their distances apart by more than 1e-5")
 
 
 def phase_kernel_grads(grad_uses, gen):
@@ -991,6 +1069,37 @@ def _cli(argv, root):
     return wall
 
 
+_CHILD_CLI = """import json, sys, time
+import torch
+sys.path.insert(0, {repo!r})
+from rvc_tpu_torch import cli
+from rvc_tpu_torch.ops import resblock as rb, retrieval as rt
+t0 = time.perf_counter()
+rc = cli.main(sys.argv[1:])
+torch.cuda.synchronize()
+print(json.dumps({{"rc": rc, "wall_s": time.perf_counter() - t0,
+                  "launches": {{**rb.launches, **rt.launches}}}}))
+"""
+
+
+def _cli_process(argv, root, timeout_s: float = 600.0):
+    """``python -m rvc_tpu_torch.cli`` as a process of its own, run from
+    ``root``, as a user runs it; returns its wall seconds (the interpreter's
+    start and imports included), the ``main`` call's, and its kernel
+    launches."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", _CHILD_CLI.format(repo=REPO), *argv],
+                          cwd=root, capture_output=True, text=True, timeout=timeout_s)
+    wall = time.perf_counter() - t0
+    lines = proc.stdout.strip().splitlines()
+    require(proc.returncode == 0 and lines and lines[-1].startswith("{"),
+            f"cli {argv[0]} in a process of its own: rc {proc.returncode}, "
+            f"{proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+    out = json.loads(lines[-1])
+    require(out["rc"] == 0, f"cli {argv[0]} returned {out['rc']}")
+    return wall, out["wall_s"], out["launches"]
+
+
 def _windowed_len(pipe, audio16: np.ndarray) -> int:
     """Output samples of ``Pipeline.pipeline`` on its windowed path: the
     windows cut at the port's own quietest points, each p_len frames of its
@@ -1544,6 +1653,350 @@ def phase_train(smi: str, root: str):
     return counts, shapes, grad_shapes, n_steps
 
 
+# -- the dataset path: preprocess, extract, train, index, every f0 method ------
+
+PREP_SR = 44100
+PREP_FILES = 20            # 10 16-bit stereo, 10 float mono
+PREP_FILE_S = 30           # 20 x 30 s = 10 minutes
+PREP_REJECTED = 19         # the take that peaks at 3.0
+BIG_ROWS = 360_000         # 2 h of one speaker at 50 frames/s
+BIG_FILE_ROWS = 10_000
+PREP_F0_METHODS = ("crepe", "crepe-tiny", "fcpe", "yin", "hybrid[rmvpe+fcpe]")
+
+
+def _prep_take(rng, leading: float) -> np.ndarray:
+    """30 s at 44.1 kHz: tones with vibrato and noise, 1.5-4 s each, between
+    silences of 0.2, 0.5, 0.8 and 1.5 s (the Slicer's kept, short, medium
+    and long cases), after a leading silence."""
+    sr = PREP_SR
+    parts = [0.003 * rng.normal(size=int(leading * sr))]
+    i = 0
+    while sum(map(len, parts)) < PREP_FILE_S * sr:
+        n = int(rng.uniform(1.5, 4.0) * sr)
+        t = np.arange(n) / sr
+        f = rng.uniform(110.0, 330.0) * (1 + 0.03 * np.sin(2 * np.pi * 5.5 * t))
+        ramp = np.minimum(1.0, np.minimum(t, t[::-1]) / 0.05)
+        phase = 2 * np.pi * np.cumsum(f) / sr
+        parts.append(ramp * (0.3 * np.sin(phase) + 0.1 * np.sin(2 * phase))
+                     + 0.01 * rng.normal(size=n))
+        parts.append(0.003 * rng.normal(size=int((0.2, 0.5, 0.8, 1.5)[i % 4] * sr)))
+        i += 1
+    return np.concatenate(parts)[:PREP_FILE_S * sr].astype(np.float32)
+
+
+def _write_prep_dataset(data_dir: str, rng) -> None:
+    """Speaker 0's ten 16-bit stereo takes in the dataset's root, speaker
+    1's ten float mono takes in ``speaker_1/``; the last peaks at 3.0."""
+    from rvc_tpu_torch.utils.audio_io import write_wav
+
+    for i in range(PREP_FILES):
+        x = _prep_take(rng, leading=(0.0, 0.8, 1.5)[i % 3])
+        if i < PREP_FILES // 2:
+            stereo = np.stack([x, 0.8 * x + 0.002 * rng.normal(size=x.size)], axis=1)
+            write_wav(os.path.join(data_dir, f"take{i:02d}.wav"), stereo, PREP_SR)
+        else:
+            if i == PREP_REJECTED:
+                x = x * (3.0 / np.abs(x).max())
+            write_wav(os.path.join(data_dir, "speaker_1", f"take{i:02d}.wav"), x,
+                      PREP_SR, "FLOAT")
+
+
+def _write_big_features(exp: str, rng) -> None:
+    """360 000 x 768 float32 features around 2000 centres, as ``extracted``
+    files of 10 000 rows."""
+    centres = rng.normal(size=(2000, 768)).astype(np.float32)
+    os.makedirs(os.path.join(exp, "extracted"), exist_ok=True)
+    for i in range(BIG_ROWS // BIG_FILE_ROWS):
+        x = centres[rng.integers(0, len(centres), BIG_FILE_ROWS)]
+        x += 0.5 * rng.standard_normal((BIG_FILE_ROWS, 768), dtype=np.float32)
+        np.save(os.path.join(exp, "extracted", f"0_{i}_0.npy"), x)
+
+
+def _write_f0_checkpoints(pred_dir: str, rng) -> dict:
+    """Seeded crepe.pt (full and tiny) and fcpe.pt in the torchcrepe and
+    torchfcpe layouts; returns their paths."""
+    import torch
+
+    from rvc_tpu_torch.predictors.crepe import CrepeModel
+    from rvc_tpu_torch.predictors.fcpe import CFNaiveMelPE
+
+    out = {}
+    for cap in ("full", "tiny"):
+        m = CrepeModel(cap)
+        _fill_random(m, rng, 0.1)
+        out[f"crepe_{cap}"] = os.path.join(pred_dir, f"crepe_{cap}.pt")
+        torch.save(m.state_dict(), out[f"crepe_{cap}"])
+    m = CFNaiveMelPE()
+    _fill_random(m, rng, 0.1)
+    sd = m.state_dict()
+    w = sd.pop("output_proj.weight")  # weight-normed, as torchfcpe saves it
+    sd["output_proj.weight_g"] = torch.linalg.norm(w, dim=1, keepdim=True)
+    sd["output_proj.weight_v"] = w
+    out["fcpe"] = os.path.join(pred_dir, "fcpe.pt")
+    torch.save({"model": sd, "config_dict": {"model": {"n_heads": 8}}}, out["fcpe"])
+    return out
+
+
+def _f0_and_voicing(method: str, fn, audio: np.ndarray):
+    """A predictor's f0 of ``audio``, and its raw voicing decision per 10 ms
+    frame with the confidence it compares and the threshold."""
+    import torch
+
+    from rvc_tpu_torch.predictors.bucketing import bucket_samples, reflect_to
+    from rvc_tpu_torch.predictors.cents import CENTS_MAPPING
+
+    f0 = np.asarray(fn(audio), np.float64)
+    obj = getattr(fn, "__self__", None)
+    if method.startswith("crepe"):
+        x = torch.from_numpy(np.pad(audio, (512, 512))).to(obj.device).unfold(0, 1024, 160)
+        keep = ((CENTS_MAPPING >= 1200 * np.log2(50.0 / 10.0))
+                & (CENTS_MAPPING <= 1200 * np.log2(1100.0 / 10.0)))
+        conf, thr = obj.salience(x).float().cpu().numpy()[:, keep].max(axis=1), 1e-3
+        return f0, conf >= thr, conf, thr
+    if method == "fcpe":
+        padded = reflect_to(audio, bucket_samples(len(audio)))[None]
+        lat = obj.latent(torch.from_numpy(padded).to(obj.device), padded.shape[1] // 160)
+        conf = lat[0].max(dim=-1).values.float().cpu().numpy()[:len(audio) // 160]
+        return f0, conf > 0.05, conf, 0.05
+    if method == "rmvpe":
+        sal = obj.salience_batch([audio])[0].cpu().numpy()[:len(audio) // 160 + 1]
+        conf = sal.max(axis=1)
+        return f0, conf > 0.03, conf, 0.03
+    return f0, f0 > 0, None, None  # yin: its voicing is its f0
+
+
+def _f0_card_vs_cpu(paths: dict, audio: np.ndarray) -> dict:
+    """Each predictor from the same checkpoint on the card and on the CPU,
+    both in float32: f0 within 1e-3 relative on the frames both voice, and
+    the voicing equal except on frames whose confidence is within 1e-4 of
+    the threshold."""
+    from rvc_tpu_torch.predictors.f0_extractor import build_predictors
+
+    out = {}
+    for method, crepe in (("rmvpe", None), ("crepe", "crepe_full"),
+                          ("crepe-tiny", "crepe_tiny"), ("fcpe", None), ("yin", None)):
+        kw = dict(rmvpe_ckpt=paths["rmvpe"], fcpe_ckpt=paths["fcpe"],
+                  crepe_ckpt=paths[crepe] if crepe else None)
+        res = {dev: _f0_and_voicing(method, build_predictors((method,), device=dev,
+                                                             **kw)[method], audio)
+               for dev in ("cuda", "cpu")}
+        (f_gpu, v_gpu, c_gpu, thr), (f_cpu, v_cpu, c_cpu, _) = res["cuda"], res["cpu"]
+        require(f_gpu.shape == f_cpu.shape, f"{method}: f0 {f_gpu.shape} vs {f_cpu.shape}")
+        both = (f_gpu > 0) & (f_cpu > 0)
+        rel = float((np.abs(f_gpu - f_cpu)[both] / f_cpu[both]).max()) if both.any() else 0.0
+        flips = v_gpu != v_cpu
+        near = (np.abs(c_cpu - thr) <= 1e-4) if c_cpu is not None else np.zeros_like(flips)
+        conf_rel = (float(np.abs(c_gpu - c_cpu).max() / np.abs(c_cpu).max())
+                    if c_cpu is not None else None)
+        out[method] = {"frames": int(f_cpu.size), "voiced_frames": int(v_cpu.sum()),
+                       "f0_max_rel_err": rel, "confidence_max_rel_err": conf_rel,
+                       "voicing_flips": int(flips.sum()),
+                       "voicing_flips_near_threshold": int((flips & near).sum())}
+        require(both.sum() > 0, f"{method}: no voiced frame on both devices")
+        require(rel <= 1e-3, f"{method}: f0 on the card vs the CPU: rel err {rel}")
+        require(not (flips & ~near).any(),
+                f"{method}: voicing differs away from the threshold: {out[method]}")
+    return out
+
+
+def phase_prep(smi: str, root: str, files: dict):
+    """The dataset path through ``rvc_tpu_torch.cli.main`` on the card, from
+    numpy seed 0: a 10-minute dataset at 44.1 kHz (``preprocess`` with
+    effects and noise reduction), ``extract`` (rmvpe, batch 8, two mute rows
+    per speaker), one full-width epoch of ``train`` and the index it builds
+    (each in a process of its own: with the defaults, then with cuDNN's
+    autotuning off),
+    ``index --index_algorithm KMeans --export_faiss`` (10 000 centroids,
+    K3 at k = 1), ``infer`` of 10 s with the trained model and that index;
+    ``build_index`` at a user's scale (360 000 x 768 -> 10 000 centroids);
+    ``infer`` with every other f0 method. Then, outside the counted run,
+    K3's ms per assignment at 360 000 x 10 000 x 768 against its bound and
+    cdist + argmin, and each predictor on the card against the CPU."""
+    import torch
+
+    from rvc_tpu_torch.ops import retrieval as rt
+    from rvc_tpu_torch.ops.retrieval import FeatureIndex
+    from rvc_tpu_torch.train.index_builder import build_index
+    from rvc_tpu_torch.utils.audio_io import load_audio, wav_frames, write_wav
+    from rvc_tpu_torch.utils.faiss_io import read_index_vectors
+
+    rng = np.random.default_rng(0)
+    t_start = time.perf_counter()
+    data_dir = os.path.join(root, "prep_dataset")
+    os.makedirs(os.path.join(data_dir, "speaker_1"), exist_ok=True)
+    _write_prep_dataset(data_dir, rng)
+    exp = os.path.join(root, "logs", "prep")
+    big = os.path.join(root, "logs", "big")
+    _write_big_features(big, rng)
+    f0_paths = _write_f0_checkpoints(os.path.dirname(files["rmvpe"]), rng)
+    f0_paths["rmvpe"] = files["rmvpe"]
+    crepe_pt = os.path.join(os.path.dirname(files["rmvpe"]), "crepe.pt")
+    wav10 = os.path.join(root, "prep_in.wav")
+    audio10 = _audio(10.0, np.random.default_rng(9))
+    write_wav(wav10, audio10, 16000)
+    setup_s = time.perf_counter() - t_start
+    res, walls = {}, {}
+
+    def cli(step, argv):
+        walls[step] = _cli(argv, root)
+        emit({"phase": "prep_step", "step": step, "wall_s": walls[step]})
+
+    def run():
+        # preprocess
+        cli("preprocess", ["preprocess", "--model_name", "prep", "--dataset_path", data_dir,
+                           "--sample_rate", "48000", "--cut_preprocess", "Automatic",
+                           "--process_effects", "True", "--noise_reduction", "True"])
+        with open(os.path.join(exp, "model_info.json")) as f:
+            res["total_dataset_duration"] = json.load(f)["total_dataset_duration"]
+        seg = sorted(os.listdir(os.path.join(exp, "sliced_audios_16k")))
+        res["segments"] = len(seg)
+        # extract
+        cli("extract", ["extract", "--model_name", "prep", "--sample_rate", "48000",
+                        "--f0_method", "rmvpe", "--include_mutes", "2", "--batch_size", "8"])
+        n16 = {n[:-4]: wav_frames(os.path.join(exp, "sliced_audios_16k", n)) for n in seg}
+        res["extract_audio_s"] = sum(n16.values()) / 16000
+        rows = 0
+        for name, n in n16.items():
+            f0 = np.load(os.path.join(exp, "f0_voiced", f"{name}.wav.npy"))
+            f0c = np.load(os.path.join(exp, "f0", f"{name}.wav.npy"))
+            emb = np.load(os.path.join(exp, "extracted", f"{name}.npy"))
+            require(f0.shape == f0c.shape == (n // 160 + 1,)
+                    and emb.shape == ((n - 400) // 320 + 1, 768),
+                    f"extract {name}: f0 {f0.shape}, features {emb.shape} for {n} samples")
+            require(bool(np.isfinite(f0).all() and np.isfinite(emb).all()),
+                    f"extract {name}: not finite")
+            rows += emb.shape[0]
+        res["feature_rows"] = rows
+        with open(os.path.join(exp, "filelist.txt")) as f:
+            res["filelist_rows"] = len(f.read().strip().split("\n"))
+        # one epoch on that filelist twice, each in a process of its own as
+        # a user runs ``train``, from scratch and with no spectrogram cached:
+        # with the defaults (the reference's: cuDNN's autotuning on), then
+        # with the autotuning off in a second experiment that reads the
+        # first's files; each ends in its index build
+        alt = os.path.join(root, "logs", "prep_no_autotune")
+        os.makedirs(alt)
+        shutil.copy(os.path.join(exp, "filelist.txt"), alt)
+        os.symlink(os.path.join(exp, "extracted"), os.path.join(alt, "extracted"))
+        for step, model, flags in (("train", "prep", []), ("train_no_autotune",
+                                   "prep_no_autotune", ["--use_benchmark", "False"])):
+            for f in glob.glob(os.path.join(exp, "**", "*.spec.npy"), recursive=True):
+                os.remove(f)
+            walls[step], walls[f"{step}_cli"], child = _cli_process(
+                ["train", "--model_name", model, "--sample_rate", "48000",
+                 "--total_epoch", "1", "--batch_size", "8", "--pretrained", "False",
+                 *flags], root)
+            emit({"phase": "prep_step", "step": step, "wall_s": walls[step],
+                  "cli_wall_s": walls[f"{step}_cli"]})
+            for name, c in child.items():
+                child_counts[name] = child_counts.get(name, 0) + c
+            with open(os.path.join(root, "logs", model, "metrics.jsonl")) as f:
+                (epoch,) = [r for r in map(json.loads, f) if "epoch/epoch_seconds" in r]
+            res[f"{step}_steps"] = epoch["step"]
+            res[f"{step}_mean_losses"] = {k: v for k, v in epoch.items()
+                                          if k.startswith("epoch/avg/loss")}
+            require(epoch["step"] > 0 and all(np.isfinite(v) for v in epoch.values()),
+                    f"prep {step}: {epoch}")
+        res["train_index_rows"] = FeatureIndex.load(
+            os.path.join(exp, "prep.index.npz")).ntotal
+        # the KMeans index, with its faiss export
+        cli("index", ["index", "--model_name", "prep", "--index_algorithm", "KMeans",
+                      "--export_faiss"])
+        # infer 10 s with the trained model and that index
+        out = os.path.join(root, "prep_out.wav")
+        cli("infer", ["infer", "--input_path", wav10, "--output_path", out,
+                      "--pth_path", os.path.join(exp, "prep_1e.pth"),
+                      "--index_path", os.path.join(exp, "prep.index.npz"),
+                      "--f0_method", "rmvpe", "--index_rate", "0.75"])
+        res["infer_samples"] = int(_check_wav(out, 479040, "prep infer").shape[0])
+        # the index at a user's scale
+        before = rt.launches["knn_topk"]
+        t0 = time.perf_counter()
+        build_index(big, algorithm="Auto")
+        torch.cuda.synchronize()
+        walls["big_build"] = time.perf_counter() - t0
+        emit({"phase": "prep_step", "step": "big_build", "wall_s": walls["big_build"]})
+        res["big_build_knn_launches"] = rt.launches["knn_topk"] - before
+        # every other f0 method, 10 s each
+        for method in PREP_F0_METHODS:
+            shutil.copy(f0_paths["crepe_tiny" if method == "crepe-tiny" else "crepe_full"],
+                        crepe_pt)
+            out = os.path.join(root, f"prep_out_{method}.wav")
+            cli(f"infer_{method}", ["infer", "--input_path", wav10, "--output_path", out,
+                                    "--pth_path", os.path.join(exp, "prep_1e.pth"),
+                                    "--f0_method", method])
+            _check_wav(out, 479040, f"infer --f0_method {method}")
+
+    child_counts = {}
+    _reset_counts()
+    shapes = record_path_shapes(run)
+    counts = {k: c + child_counts.get(k, 0) for k, c in _counts().items()}
+    for name, c in counts.items():
+        require(c > 0, f"kernel {name} was not launched on the dataset path")
+    # every take but the rejected one, as many 48 kHz samples as the
+    # resampler gives it
+    takes = sorted(glob.glob(os.path.join(data_dir, "**", "take*.wav"), recursive=True))
+    expect = sum(len(load_audio(t, 48000)) for t in takes
+                 if not t.endswith(f"take{PREP_REJECTED:02d}.wav"))
+    require(len(takes) == PREP_FILES
+            and round(res["total_dataset_duration"] * 48000) == expect,
+            f"total_dataset_duration {res['total_dataset_duration']} s != {expect} "
+            "samples at 48 kHz (the rejected take left out)")
+    require(res["filelist_rows"] == res["segments"] + 2 * 2,
+            f"filelist: {res['filelist_rows']} rows for {res['segments']} segments")
+    require(res["train_index_rows"] == res["feature_rows"],
+            f"train's index: {res['train_index_rows']} rows of {res['feature_rows']}")
+    require(res["big_build_knn_launches"] == 25,
+            f"the 360 000-row build launched K3 {res['big_build_knn_launches']} times")
+
+    # the KMeans index: 10 000 centroids; the faiss file holds the same
+    # vectors; a second build from the same seed writes the same bytes
+    idx_path = os.path.join(exp, "prep.index.npz")
+    vec = FeatureIndex.load(idx_path).vectors.cpu().numpy()
+    (faiss_name,) = [f for f in os.listdir(exp) if f.endswith("_v2.index")]
+    require(vec.shape == (10_000, 768) and np.isfinite(vec).all(),
+            f"KMeans index {vec.shape}")
+    require(np.array_equal(read_index_vectors(os.path.join(exp, faiss_name)), vec),
+            "the exported faiss index holds other vectors")
+    again = build_index(exp, output_path=os.path.join(root, "again.index.npz"),
+                        algorithm="KMeans")
+    with open(idx_path, "rb") as f, open(again, "rb") as g:
+        require(f.read() == g.read(), "two KMeans builds from one seed differ")
+
+    # K3 at the user's scale: one launch and 16384-row chunks, against
+    # cdist + argmin over the same chunks and the bound
+    feats = torch.from_numpy(np.concatenate([
+        np.load(os.path.join(big, "extracted", f)) for f in
+        sorted(os.listdir(os.path.join(big, "extracted")))])).cuda()
+    cents = FeatureIndex.load(os.path.join(big, "big.index.npz")).vectors
+    q, n, d = feats.shape[0], cents.shape[0], feats.shape[1]
+    chunks = range(0, q, KNN_CHECK_ROWS)
+    knn = {"Q": q, "N": n, "D": d,
+           "ms_per_assignment": gpu_time_ms(lambda: rt.knn_topk(feats, cents, 1)),
+           "ms_per_assignment_chunked": gpu_time_ms(
+               lambda: [rt.knn_topk(feats[i:i + KNN_CHECK_ROWS], cents, 1) for i in chunks], 3),
+           "cdist_argmin_ms": gpu_time_ms(
+               lambda: [torch.cdist(feats[i:i + KNN_CHECK_ROWS], cents).argmin(dim=1)
+                        for i in chunks], 3)}
+    knn["bound_ms"], knn["bytes_ms"], knn["ops_ms"] = bound(
+        4 * (q * d + n * d) + 12 * q, [(3 * 2.0 * q * n * d, PEAK_TF32)])
+    del feats, cents
+    torch.cuda.empty_cache()
+
+    # what the user waits for, takes to a voice that has converted 10 s
+    user_wall = sum(walls[k] for k in ("preprocess", "extract", "train", "index", "infer"))
+    f0_check = _f0_card_vs_cpu({**f0_paths, "rmvpe": files["rmvpe"]}, audio10[:32000])
+    emit({"phase": "prep", "gpu": smi, "setup_s": setup_s, "wall_s": walls,
+          "input_s": PREP_FILES * PREP_FILE_S, **res,
+          "extract_audio_s_per_wall_s": res["extract_audio_s"] / walls["extract"],
+          "dataset_wall_s": user_wall, "dataset_wall_s_no_autotune":
+              user_wall - walls["train"] + walls["train_no_autotune"],
+          "launches": counts, "knn_kmeans": knn, "f0_card_vs_cpu": f0_check,
+          "kernel_shapes": [[str(v) if isinstance(v, torch.dtype) else v for v in sh]
+                            for sh in shapes if sh[0] == "knn"]})
+    return counts, shapes
+
+
 def _cuda_switches(values=None):
     """The CUDA switches the ``train`` CLI sets as the reference does (TF32,
     cuDNN autotuning and determinism): their values, or set them back."""
@@ -1612,7 +2065,7 @@ def main(argv) -> int:
         return 2
     phases = argv[1].split(",") if len(argv) > 1 else [
         "env", "build", "small", "pipeline", "stream", "files", "windowed", "batch",
-        "nof0", "train", "kernels", "stages"]
+        "nof0", "train", "prep", "kernels", "stages"]
     sys.path.insert(0, REPO)
     import rvc_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -1624,7 +2077,7 @@ def main(argv) -> int:
     counts, rec, launches, path_shapes = {}, {}, {}, {}
     if "unit" in phases:
         phase_kernels({"unit": UNIT_SHAPES})
-    user_paths = [p for p in ("windowed", "batch", "nof0") if p in phases]
+    user_paths = [p for p in ("windowed", "batch", "nof0", "prep") if p in phases]
     root = tempfile.mkdtemp(prefix="rvc_chip_smoke_")
     try:
         if "pipeline" in phases:
@@ -1634,7 +2087,7 @@ def main(argv) -> int:
                 phase_stream(pipe, audio, index, smi)
         if "files" in phases or user_paths:
             files = phase_files(smi, root)
-            for name in user_paths:
+            for name in (p for p in user_paths if p != "prep"):
                 phase = {"windowed": phase_windowed, "batch": phase_batch,
                          "nof0": phase_nof0}[name]
                 launches[name], path_shapes[name] = phase(smi, files, root)
@@ -1647,6 +2100,8 @@ def main(argv) -> int:
             _cuda_switches(switches)  # later phases time cuDNN as earlier PRs did
             grad_uses = {k: n / n_steps for k, n in
                          collections.Counter(map(_shape_key, grad_shapes)).items()}
+        if "prep" in phases:
+            launches["prep"], path_shapes["prep"] = phase_prep(smi, root, files)
         if "kernels" in phases and path_shapes:  # at the shapes the paths gave
             rec = phase_kernels(path_shapes, grad_uses).get("pipeline", {})
         if "pipeline" in phases and "stages" in phases:

@@ -1,23 +1,31 @@
-"""Command line of the port: the ``infer``, ``batch_infer`` and ``train``
-subcommands (port of ``rvc_tpu/cli.py``'s), run on the card.
+"""Command line of the port: the ``infer``, ``batch_infer``, ``preprocess``,
+``extract``, ``train`` and ``index`` subcommands (port of
+``rvc_tpu/cli.py``'s), run on the card.
 
     python -m rvc_tpu_torch.cli infer --input_path in.wav --output_path out.wav \\
         --pth_path model.pth --index_path model.index [--device cuda]
     python -m rvc_tpu_torch.cli batch_infer --input_folder in/ --output_folder out/ \\
         --pth_path model.pth
+    python -m rvc_tpu_torch.cli preprocess --model_name m --dataset_path data/ \\
+        --sample_rate 48000
+    python -m rvc_tpu_torch.cli extract --model_name m --sample_rate 48000 \\
+        [--f0_method rmvpe --batch_size 8]
     python -m rvc_tpu_torch.cli train --model_name m --sample_rate 48000 \\
         [--total_epoch 200 --batch_size 8 --save_every_epoch 10 ...]
+    python -m rvc_tpu_torch.cli index --model_name m [--index_algorithm KMeans]
 
-``train`` runs from the directory that holds ``logs/<model_name>/filelist.txt``
-and writes its checkpoints there. The parser is the port's own copy of the
-JAX CLI's argument surface for these subcommands, flag for flag, so that a
-command line written for it parses unchanged; ``--device`` (default
-``cuda``) is added. Options the port does not serve yet raise
+The dataset commands run from the directory that holds ``logs/`` and write
+into ``logs/<model_name>/``: ``preprocess`` the sliced WAVs, ``extract``
+the f0 and feature files with ``filelist.txt``, ``train`` its checkpoints
+and, at its end, the index, as ``index`` does. The parser is the port's own
+copy of the JAX CLI's argument surface for these subcommands, flag for
+flag, so that a command line written for it parses unchanged; ``--device``
+(default ``cuda``) is added. Options the port does not serve yet raise
 ``NotImplementedError`` naming their ROADMAP item when set (for inference:
-f0 methods other than ``rmvpe``, formant shifting, the post-FX chain,
-``--clean_audio``, formats other than WAV; for training: discriminators
-other than ``mpd``, ``--use_orbax``, several ``--gpu`` indices, vocoders
-other than HiFi-GAN). ``main(argv)`` returns the exit code.
+formant shifting, the post-FX chain, ``--clean_audio``, formats other than
+WAV; for training: discriminators other than ``mpd``, ``--use_orbax``,
+several ``--gpu`` indices, vocoders other than HiFi-GAN). ``main(argv)``
+returns the exit code.
 """
 
 from __future__ import annotations
@@ -203,6 +211,56 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                         "'cpu' runs the kernels' plain versions)")
 
 
+def _add_preprocess_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model_name", type=str, required=True)
+    p.add_argument("--dataset_path", type=str, required=True)
+    p.add_argument("--sample_rate", type=int, required=True,
+                   choices=[32000, 40000, 48000])
+    p.add_argument("--cpu_cores", type=int, default=None)
+    p.add_argument("--cut_preprocess", type=str, default="Automatic",
+                   choices=["Skip", "Simple", "Automatic"])
+    p.add_argument("--process_effects", type=_bool, default=True)
+    p.add_argument("--noise_reduction", type=_bool, default=False)
+    p.add_argument("--noise_reduction_strength", type=float, default=0.7)
+    p.add_argument("--chunk_len", type=float, default=3.0)
+    p.add_argument("--overlap_len", type=float, default=0.3)
+
+
+def _add_extract_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model_name", type=str, required=True)
+    p.add_argument("--f0_method", type=str, default="rmvpe",
+                   choices=["crepe", "crepe-tiny", "rmvpe", "fcpe", "yin"])
+    p.add_argument("--hop_length", type=int, default=128)
+    p.add_argument("--sample_rate", type=int, required=True)
+    p.add_argument("--embedder_model", type=str, default="contentvec",
+                   choices=["contentvec", "spin", "chinese-hubert-base",
+                            "japanese-hubert-base", "korean-hubert-base",
+                            "custom"])
+    p.add_argument("--embedder_model_custom", type=str, default=None)
+    p.add_argument("--include_mutes", type=int, default=2)
+    p.add_argument("--rmvpe_ckpt", type=str,
+                   default=os.path.join("models", "predictors", "rmvpe.pt"))
+    p.add_argument("--batch_size", type=int, default=8)
+    p.add_argument("--cpu_cores", type=int, default=None,
+                   help="host threads for audio decode during extraction")
+    p.add_argument("--gpu", type=str, default="",
+                   help="card index to extract on (the first of a dash list)")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device to extract on (the card by default; "
+                        "'cpu' runs the kernels' plain versions)")
+
+
+def _add_index_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--model_name", type=str, required=True)
+    p.add_argument("--index_algorithm", type=str, default="Auto",
+                   choices=["Auto", "Faiss", "KMeans"])
+    p.add_argument("--export_faiss", action="store_true",
+                   help="also write a faiss-binary IndexIVFFlat "
+                        "(added_IVF{n}_Flat_..._v2.index) for a reference install")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the k-means (the card by default)")
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="rvc_tpu_torch",
@@ -216,8 +274,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_folder", type=str, required=True)
     p.add_argument("--output_folder", type=str, required=True)
     _add_infer_args(p)
+    p = sub.add_parser("preprocess", help="Preprocess a dataset")
+    _add_preprocess_args(p)
+    p = sub.add_parser("extract", help="Extract F0 + content features")
+    _add_extract_args(p)
     p = sub.add_parser("train", help="Train a model")
     _add_train_args(p)
+    p = sub.add_parser("index", help="Build the retrieval index")
+    _add_index_args(p)
     return parser
 
 
@@ -290,14 +354,58 @@ def _train(args) -> None:
     if args.use_deterministic:
         torch.use_deterministic_algorithms(True, warn_only=True)
     Trainer(cfg, targs).fit()
-    print("index: building the retrieval index after training waits for "
-          "ROADMAP A.12; use the JAX package's `index` subcommand")
+    from .train.index_builder import build_index
+
+    try:
+        print("index:", build_index(targs.exp_dir, algorithm=args.index_algorithm,
+                                    device=args.device))
+    except FileNotFoundError:
+        pass
+
+
+def _preprocess(args) -> None:
+    from .train.preprocess import preprocess_training_set
+
+    exp_dir = os.path.join("logs", args.model_name)
+    hours = preprocess_training_set(
+        args.dataset_path, args.sample_rate, exp_dir,
+        cut_preprocess=args.cut_preprocess, process_effects=args.process_effects,
+        noise_reduction=args.noise_reduction,
+        reduction_strength=args.noise_reduction_strength,
+        chunk_len=args.chunk_len, overlap_len=args.overlap_len,
+        num_workers=args.cpu_cores)
+    print(f"preprocessed {hours:.2f} h into {exp_dir}")
+
+
+def _extract(args) -> None:
+    from .train.extract import run_extraction
+
+    exp_dir = os.path.join("logs", args.model_name)
+    device = f"cuda:{int(args.gpu.split('-')[0])}" if args.gpu else args.device
+    run_extraction(
+        exp_dir, f0_method=args.f0_method,
+        rmvpe_ckpt=args.rmvpe_ckpt if os.path.exists(args.rmvpe_ckpt) else None,
+        embedder_ckpt=args.embedder_model_custom,
+        include_mutes=args.include_mutes, sample_rate=args.sample_rate,
+        batch_size=args.batch_size, embedder_model=args.embedder_model,
+        hop_length=args.hop_length, cpu_cores=args.cpu_cores, device=device)
+    print(f"extraction complete for {exp_dir}")
+
+
+def _index(args) -> None:
+    from .train.index_builder import build_index
+
+    print(build_index(os.path.join("logs", args.model_name),
+                      algorithm=args.index_algorithm,
+                      export_faiss=args.export_faiss, device=args.device))
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.mode == "train":
-        _train(args)
+    runners = {"train": _train, "preprocess": _preprocess,
+               "extract": _extract, "index": _index}
+    if args.mode in runners:
+        runners[args.mode](args)
         return 0
     from .infer.converter import VoiceConverter
 

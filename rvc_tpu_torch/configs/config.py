@@ -8,6 +8,7 @@ preset per sample rate, field overrides through ``get_config``.
 from __future__ import annotations
 
 import dataclasses
+import json
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -55,7 +56,11 @@ class ModelConfig:
 
 @dataclass(frozen=True)
 class TrainConfig:
+    log_interval: int = 200
+    seed: int = 1234
     learning_rate: float = 1e-4
+    betas: Tuple[float, float] = (0.8, 0.99)
+    eps: float = 1e-9
     bf16_run: bool = True
     lr_decay: float = 0.999875
     segment_size: int = 17280          # samples of raw audio per training slice
@@ -69,6 +74,7 @@ class TrainConfig:
     use_wgan: bool = False
     use_balancer: bool = False
     warmup_epochs: int = 0
+    grad_clip_norm: float = 999999.0   # effectively only a probe, like reference
     use_checkpointing: bool = False    # recompute the generator forward (memory)
 
 
@@ -89,6 +95,28 @@ class ExperimentConfig:
             out *= r
         return out
 
+    def to_json(self) -> str:
+        """The configuration as the JAX package writes it (``config.json``)."""
+        return json.dumps(dataclasses.asdict(self), indent=2)
+
+    @staticmethod
+    def from_json(text: str) -> "ExperimentConfig":
+        """Read ``to_json``'s text, or a reference-style JSON: keys that no
+        section has are dropped, lists become tuples."""
+        raw = json.loads(text)
+
+        def tupleize(x):
+            return tuple(tupleize(v) for v in x) if isinstance(x, list) else x
+
+        def section(cls, name):
+            keys = {f.name for f in dataclasses.fields(cls)}
+            return cls(**{k: tupleize(v) for k, v in raw.get(name, {}).items()
+                          if k in keys})
+
+        return ExperimentConfig(data=section(DataConfig, "data"),
+                                model=section(ModelConfig, "model"),
+                                train=section(TrainConfig, "train"))
+
 
 _PRESETS = {
     32000: ExperimentConfig(
@@ -96,12 +124,14 @@ _PRESETS = {
                         win_length=1024, n_mel_channels=80),
         model=ModelConfig(upsample_rates=(10, 8, 2, 2),
                           upsample_kernel_sizes=(20, 16, 4, 4)),
+        train=TrainConfig(segment_size=12800),
     ),
     40000: ExperimentConfig(
         data=DataConfig(sample_rate=40000, filter_length=2048, hop_length=400,
                         win_length=2048, n_mel_channels=125),
         model=ModelConfig(upsample_rates=(10, 10, 2, 2),
                           upsample_kernel_sizes=(16, 16, 4, 4)),
+        train=TrainConfig(segment_size=12800),
     ),
     48000: ExperimentConfig(
         data=DataConfig(sample_rate=48000, filter_length=2048, hop_length=480,

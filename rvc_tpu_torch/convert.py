@@ -286,6 +286,46 @@ def rmvpe_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]
     return sd
 
 
+def crepe_state_dict(params: Tree, batch_stats: Tree) -> Dict[str, torch.Tensor]:
+    """flax ``CrepeModel`` params + batch_stats -> torchcrepe's state_dict
+    (the layout of the port's ``CrepeModel``)."""
+    sd: Dict[str, torch.Tensor] = {}
+    for i in range(1, 7):
+        sd[f"conv{i}.weight"] = _conv2d_weight(params[f"conv{i}"]["kernel"])
+        sd[f"conv{i}.bias"] = _t(params[f"conv{i}"]["bias"])
+        _bn(sd, f"conv{i}_BN", params[f"bn{i}"], batch_stats[f"bn{i}"])
+    _dense(sd, "classifier", params["classifier"])
+    return sd
+
+
+def fcpe_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
+    """flax ``CFNaiveMelPE`` params -> torchfcpe's state_dict (the layout
+    of the port's ``CFNaiveMelPE``; the output projection as a plain
+    weight, FAVOR+'s projection matrix as the attention's buffer)."""
+    sd: Dict[str, torch.Tensor] = {}
+    _conv1d(sd, "input_stack.0", params["in_conv1"])
+    _norm(sd, "input_stack.1", params["in_gn"])
+    _conv1d(sd, "input_stack.3", params["in_conv2"])
+    i = 0
+    while f"layer_{i}" in params:
+        p, pre = params[f"layer_{i}"], f"net.encoder_layers.{i}"
+        if "attn" in p:
+            _norm(sd, f"{pre}.norm", p["norm"])
+            sd[f"{pre}.attn.fast_attention.projection_matrix"] = _t(
+                p["attn"]["projection_matrix"])
+            for name in ("to_q", "to_k", "to_v", "to_out"):
+                _dense(sd, f"{pre}.attn.{name}", p["attn"][name])
+        c = p["conformer"]
+        _norm(sd, f"{pre}.conformer.net.0", c["norm"])
+        _conv1d(sd, f"{pre}.conformer.net.2", c["pw1"])
+        _conv1d(sd, f"{pre}.conformer.net.4.conv", c["dw"])
+        _conv1d(sd, f"{pre}.conformer.net.6", c["pw2"])
+        i += 1
+    _norm(sd, "norm", params["norm"])
+    _dense(sd, "output_proj", params["output_proj"])
+    return sd
+
+
 def load_into(module: torch.nn.Module, sd: Dict[str, torch.Tensor]) -> None:
     """Strict load that keeps the module's device and dtype."""
     ref = module.state_dict()

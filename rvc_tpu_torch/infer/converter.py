@@ -25,7 +25,7 @@ from ..device import resolve_device
 from ..embedders.hubert import HubertConfig, load_embedder_by_name
 from ..ops.retrieval import FeatureIndex
 from ..predictors.f0_extractor import (DEFAULT_CKPTS, build_predictors,
-                                       check_f0_method)
+                                       check_f0_method, parse_f0_methods)
 from ..utils.audio_io import load_audio, save_audio
 from ..utils.checkpoints import build_synthesizer, load_checkpoint, load_rvc_pth
 from ..utils.split_audio import merge_audio, process_audio
@@ -69,12 +69,16 @@ class VoiceConverter:
 
     def get_predictors(self, f0_method: str) -> Dict[str, Any]:
         """The (cached) f0 predictors a method needs, from the staged
-        checkpoints under models/predictors/ (random weights otherwise)."""
+        checkpoints under models/predictors/ (random weights otherwise);
+        ``yin`` needs none."""
         check_f0_method(f0_method)
-        if "rmvpe" not in self._predictors:
+        missing = [m for m in dict.fromkeys(parse_f0_methods(f0_method))
+                   if m not in self._predictors and m != "yin"]
+        if missing:
             self._predictors.update(build_predictors(
-                ("rmvpe",), rmvpe_ckpt=self.PREDICTOR_CKPTS.get("rmvpe"),
-                device=self.device))
+                missing, rmvpe_ckpt=self.PREDICTOR_CKPTS.get("rmvpe"),
+                fcpe_ckpt=self.PREDICTOR_CKPTS.get("fcpe"),
+                crepe_ckpt=self.PREDICTOR_CKPTS.get("crepe"), device=self.device))
         return self._predictors
 
     # -- model management ----------------------------------------------------
@@ -163,8 +167,8 @@ class VoiceConverter:
         formant_timbre: float = 1.0, post_process: bool = False, **post_fx,
     ) -> str:
         """Convert one file and write it as WAV at the model's rate.
-        ``hop_length`` only concerns the crepe methods (not ported);
-        ``post_fx`` only the post-FX chain (refused with ``post_process``)."""
+        ``hop_length`` only concerns the crepe methods; ``post_fx`` only
+        the post-FX chain (refused with ``post_process``)."""
         check_options(export_format, formant_shifting=formant_shifting,
                       post_process=post_process, clean_audio=clean_audio)
         start = time.time()
@@ -191,7 +195,7 @@ class VoiceConverter:
             f0_autotune=f0_autotune, f0_autotune_strength=f0_autotune_strength,
             inp_f0=inp_f0,
             predictors=self.get_predictors(f0_method) if self.use_f0 else None,
-            filter_radius=filter_radius)
+            filter_radius=filter_radius, hop_length=int(hop_length))
         if split_audio:
             segments, intervals = process_audio(audio16, 16000)
             converted = self.pipeline.pipeline_many(segments, **kwargs)
@@ -268,7 +272,8 @@ class VoiceConverter:
                         f0_method, self.get_predictors(f0_method),
                         f0_autotune=bool(kwargs.get("f0_autotune", False)),
                         f0_autotune_strength=kwargs.get("f0_autotune_strength", 1.0),
-                        filter_radius=kwargs.get("filter_radius", 3))
+                        filter_radius=kwargs.get("filter_radius", 3),
+                        hop_length=int(kwargs.get("hop_length", 160)))
                 segs.append(audio_pad)
                 pitches.append(pc)
                 pitchfs.append(pf)

@@ -32,7 +32,8 @@ from scipy import signal as sps
 
 from ..device import resolve_device
 from ..ops.retrieval import retrieve_blend
-from ..predictors.f0_extractor import check_f0_method, parse_f0_methods
+from ..predictors.f0_extractor import (check_f0_method, interp_f0_to_grid,
+                                       parse_f0_methods)
 from ..predictors.rmvpe import decode_salience, rmvpe_mel
 
 AUTOTUNE_REF_FREQS = np.array([
@@ -460,21 +461,40 @@ class Pipeline:
         f0_method: str = "rmvpe", predictors: Optional[Dict[str, Any]] = None,
         f0_autotune: bool = False, f0_autotune_strength: float = 1.0,
         inp_f0: Optional[np.ndarray] = None, filter_radius: float = 3,
+        hop_length: int = 160,
     ) -> Tuple[np.ndarray, np.ndarray]:
-        """f0 of the whole padded input, median filter (odd radius >= 3),
-        autotune, shift, the external f0 splice at the pad offset, and the
-        255-bin quantization: (coarse int32 [p_len], f0 float32 [p_len]).
+        """f0 of the whole padded input (the median of the methods of a
+        hybrid), median filter (odd radius >= 3), autotune, shift, the
+        external f0 splice at the pad offset, and the 255-bin quantization:
+        (coarse int32 [p_len], f0 float32 [p_len]).
+
         ``predictors`` maps a method to an audio -> f0 callable; without an
-        ``rmvpe`` entry the attached RMVPE predictor serves."""
+        ``rmvpe`` entry the attached RMVPE predictor serves, and ``yin``
+        needs none (it runs on the pipeline's device). fcpe gets ``p_len``
+        and ``filter_radius`` (a fractional radius is its confidence
+        threshold); crepe gets ``hop_length``, and its contour is
+        interpolated back to the 10 ms grid when that is not 160."""
         check_f0_method(f0_method)
         predictors = dict(predictors or {})
         if "rmvpe" not in predictors and self._rmvpe is not None:
             predictors["rmvpe"] = self._rmvpe.infer_from_audio
         stack = []
         for m in parse_f0_methods(f0_method):
-            if m not in predictors:
+            if m == "yin" and m not in predictors:
+                from ..predictors.dsp_f0 import yin_f0_np
+
+                f0 = yin_f0_np(audio_pad, device=self.device)
+            elif m not in predictors:
                 raise ValueError(f"f0 method {m!r} unavailable (no predictor loaded)")
-            f0 = np.asarray(predictors[m](audio_pad))
+            elif m == "fcpe":
+                f0 = np.asarray(predictors[m](audio_pad, p_len=p_len,
+                                              filter_radius=filter_radius))
+            elif m.startswith("crepe"):
+                f0 = np.asarray(predictors[m](audio_pad, hop_length=int(hop_length)))
+                if int(hop_length) != WINDOW:
+                    f0 = interp_f0_to_grid(f0, p_len)
+            else:
+                f0 = np.asarray(predictors[m](audio_pad))
             stack.append(f0[:p_len] if len(f0) >= p_len
                          else np.pad(f0, (0, p_len - len(f0))))
         f0 = stack[0] if len(stack) == 1 else np.nanmedian(np.stack(stack), axis=0)
@@ -583,11 +603,12 @@ class Pipeline:
         protect: float = 0.5, f0_autotune: bool = False,
         f0_autotune_strength: float = 1.0, inp_f0: Optional[np.ndarray] = None,
         predictors: Optional[Dict[str, Any]] = None, generator=None,
-        filter_radius: float = 3,
+        filter_radius: float = 3, hop_length: int = 160,
     ) -> np.ndarray:
         """Full conversion of a 16 kHz waveform -> tgt_sr waveform. An input
         up to ``t_max`` with RMVPE pitch and no external f0 takes the fused
-        path; the rest take the windowed path."""
+        path; the rest (and every other f0 method) take the windowed
+        path."""
         if pitch_guidance:
             check_f0_method(f0_method)
         index_arr = (self._index_on_device(index_vectors)
@@ -597,7 +618,8 @@ class Pipeline:
         audio_pad = np.pad(audio, (self.t_pad, self.t_pad), mode="reflect")
         p_len = audio_pad.shape[0] // WINDOW
 
-        fused = pitch_guidance and not opt_ts and inp_f0 is None
+        fused = (pitch_guidance and not opt_ts and inp_f0 is None
+                 and f0_method == "rmvpe")
         if fused:
             self._attach_rmvpe(predictors)
         if fused and self._rmvpe is not None:
@@ -613,7 +635,8 @@ class Pipeline:
         if pitch_guidance:
             pitch, pitchf = self.get_f0(
                 audio_pad, p_len, pitch_shift, f0_method, predictors,
-                f0_autotune, f0_autotune_strength, inp_f0, filter_radius)
+                f0_autotune, f0_autotune_strength, inp_f0, filter_radius,
+                hop_length)
         # the windows and their slices of the global pitch
         segments, seg_pitches, seg_pitchfs = [], [], []
         s, t = 0, None
@@ -644,7 +667,7 @@ class Pipeline:
         protect: float = 0.5, f0_autotune: bool = False,
         f0_autotune_strength: float = 1.0, inp_f0: Optional[np.ndarray] = None,
         predictors: Optional[Dict[str, Any]] = None, generator=None,
-        filter_radius: float = 3,
+        filter_radius: float = 3, hop_length: int = 160,
     ) -> List[np.ndarray]:
         """Convert independent clips, sample-identical to ``[self.pipeline(a,
         ...) for a in audios]``; when every clip takes the fused path they
@@ -657,7 +680,7 @@ class Pipeline:
             protect=protect, f0_autotune=f0_autotune,
             f0_autotune_strength=f0_autotune_strength, inp_f0=inp_f0,
             predictors=predictors, generator=generator,
-            filter_radius=filter_radius)
+            filter_radius=filter_radius, hop_length=hop_length)
         fast = (pitch_guidance and inp_f0 is None and f0_method == "rmvpe"
                 and all(a.shape[0] <= self.t_max for a in audios))
         if fast:

@@ -1,17 +1,19 @@
-"""Feature-index retrieval: exact k-NN (kernel K3 ``knn_topk``) and the
-inverse-square-distance blend.
+"""Feature-index retrieval: exact k-NN (kernel K3 ``knn_topk``), the
+inverse-square-distance blend, and the k-means that compresses an index.
 
-Port of ``rvc_tpu/ops/retrieval.py`` (``knn_search``, ``retrieve_blend``,
-``FeatureIndex``) with the k-NN routed to the hand-written kernel in
-``csrc/knn.cu``, the counterpart of ``ops/retrieval_pallas.py``'s
-``knn_search_pallas``. Every search on a CUDA tensor goes through the
-kernel; the plain version ``knn_search_plain`` runs for CPU tensors.
+Port of ``rvc_tpu/ops/retrieval.py`` (``knn_search``, ``knn_search_tiled``,
+``retrieve_blend``, ``FeatureIndex``, ``kmeans``) with the k-NN routed to
+the hand-written kernel in ``csrc/knn.cu``, the counterpart of
+``ops/retrieval_pallas.py``'s ``knn_search_pallas``. Every search on a CUDA
+tensor goes through the kernel, k-means' assignment step included (K3 at
+k = 1); for CPU tensors the plain versions run: ``knn_search_plain``, or
+``knn_search_tiled`` where the dense [T, N] distance matrix would be large.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -30,12 +32,54 @@ def reset_launches() -> None:
 def knn_search_plain(queries: torch.Tensor, vectors: torch.Tensor,
                      k: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact k-NN by squared L2: queries [T, D], vectors [N, D] ->
-    (distances [T, k] ascending and clamped to >= 0, indices [T, k])."""
+    (distances [T, k] ascending and clamped to >= 0, indices [T, k]). At
+    k = 1 a tie goes to the lower index, as in the kernel."""
     q2 = torch.sum(queries ** 2, dim=1, keepdim=True)
     v2 = torch.sum(vectors ** 2, dim=1)[None, :]
     d2 = q2 + v2 - 2.0 * (queries @ vectors.T)
+    if k == 1:
+        idx = torch.argmin(d2, dim=1, keepdim=True)
+        return torch.clamp(torch.gather(d2, 1, idx), min=0.0), idx
     neg, idx = torch.topk(-d2, k, dim=1, sorted=True)
     return torch.clamp(-neg, min=0.0), idx
+
+
+def knn_search_tiled(queries: torch.Tensor, vectors: torch.Tensor, k: int = 8,
+                     tile: int = 65536) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``knn_search_plain`` streamed over ``tile``-row blocks of the index
+    with a running top-k, so that the distance matrix held at once is
+    [T, tile] and not [T, N]."""
+    q2 = torch.sum(queries ** 2, dim=1, keepdim=True)
+    best_d = torch.full((queries.shape[0], k), float("inf"), device=queries.device)
+    best_i = torch.zeros((queries.shape[0], k), dtype=torch.int64,
+                         device=queries.device)
+    for start in range(0, vectors.shape[0], tile):
+        vt = vectors[start:start + tile]
+        d2 = q2 + torch.sum(vt ** 2, dim=1)[None, :] - 2.0 * (queries @ vt.T)
+        idx = torch.arange(start, start + vt.shape[0], device=queries.device)
+        cat_d = torch.cat([best_d, d2], dim=1)
+        cat_i = torch.cat([best_i, idx[None, :].expand(d2.shape[0], -1)], dim=1)
+        neg, sel = torch.topk(-cat_d, k, dim=1, sorted=True)
+        best_d, best_i = -neg, torch.gather(cat_i, 1, sel)
+    return torch.clamp(best_d, min=0.0), best_i
+
+
+# index row count above which the CPU search streams the index
+TILED_SEARCH_THRESHOLD = 200_000
+# cap on the elements of a dense [T, N] (or streamed [T, tile]) distance
+# matrix on the CPU: 2^27 float32 = 512 MB
+DENSE_ELEMS_LIMIT = 1 << 27
+MIN_TILE = 4096
+
+
+def _search_plain(queries: torch.Tensor, vectors: torch.Tensor, k: int):
+    """The CPU search: dense where the distance matrix is small, else
+    streamed in blocks that keep [T, tile] under the cap."""
+    t, n = queries.shape[0], vectors.shape[0]
+    if n <= TILED_SEARCH_THRESHOLD and t * n <= DENSE_ELEMS_LIMIT:
+        return knn_search_plain(queries, vectors, k)
+    tile = int(min(65536, max(MIN_TILE, DENSE_ELEMS_LIMIT // max(t, 1))))
+    return knn_search_tiled(queries, vectors, k, tile=tile)
 
 
 def _lib():
@@ -69,9 +113,11 @@ def knn_topk(queries: torch.Tensor, vectors: torch.Tensor,
     """K3: exact squared-L2 k-NN. For a CUDA tensor it launches the kernel
     (f32 [T, D] queries, f32 [N, D] index, D a multiple of 4, k <= 8) or
     raises; for a CPU
-    tensor it runs ``knn_search_plain``. Indices are int64."""
+    tensor it runs ``knn_search_plain`` (``knn_search_tiled`` above
+    ``TILED_SEARCH_THRESHOLD`` rows or a 2^27-element distance matrix).
+    Indices are int64."""
     if queries.device.type == "cpu":
-        return knn_search_plain(queries, vectors, k)
+        return _search_plain(queries, vectors, k)
     if queries.device.type != "cuda" or vectors.device != queries.device:
         raise ValueError("knn_topk: queries and vectors must be on one CUDA device")
     for name, t in (("queries", queries), ("vectors", vectors)):
@@ -146,3 +192,38 @@ class FeatureIndex:
 
     def blend(self, feats: torch.Tensor, index_rate: float, k: int = 8):
         return retrieve_blend(feats, self.vectors, index_rate, k)
+
+
+def kmeans(data: torch.Tensor, n_clusters: int, n_iters: int = 25,
+           seed: int = 0, init: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Lloyd's k-means, full batch: data [N, D] float32 -> centroids
+    [K, D], on data's device.
+
+    The initial centroids are the rows ``init`` (indices), by default
+    ``np.random.default_rng(seed).choice(N, K, replace=False)``. Each
+    iteration assigns every row to its nearest centroid through
+    ``knn_topk`` at k = 1 (kernel K3 on the card, all rows in one launch;
+    on the CPU in chunks that keep [rows, K] under ``DENSE_ELEMS_LIMIT``),
+    then sums the rows of each centroid in a fixed order: the rows sorted
+    by centroid (a stable sort) and added up segment by segment, with no
+    atomics, so that a run repeats bit for bit. A centroid no row chose
+    keeps its place."""
+    n, dim = data.shape
+    if not 1 <= n_clusters <= n:
+        raise ValueError(f"kmeans: need 1 <= n_clusters ({n_clusters}) <= rows ({n})")
+    if init is None:
+        init = np.random.default_rng(seed).choice(n, n_clusters, replace=False)
+    init_idx = torch.as_tensor(np.asarray(init, np.int64), device=data.device)
+    centroids = data[init_idx].contiguous()
+    rows = n if data.device.type == "cuda" else max(1024, DENSE_ELEMS_LIMIT // n_clusters)
+    for _ in range(n_iters):
+        assign = torch.cat([knn_topk(data[i:i + rows], centroids, 1)[1][:, 0]
+                            for i in range(0, n, rows)])
+        order = torch.sort(assign, stable=True).indices
+        counts = torch.bincount(assign, minlength=n_clusters)
+        sums = torch.segment_reduce(data[order], "sum", lengths=counts, axis=0,
+                                    unsafe=True)
+        c = counts[:, None].to(data.dtype)
+        centroids = torch.where(c > 0, sums / torch.clamp(c, min=1.0),
+                                centroids).contiguous()
+    return centroids

@@ -1,0 +1,174 @@
+"""CREPE pitch estimator, full and tiny capacities (port of
+``rvc_tpu/predictors/crepe.py``).
+
+1024-sample frames at 16 kHz, each normalized by its mean and (unbiased)
+standard deviation, through 6 conv blocks (conv, ReLU, batch norm, 2x max
+pool) and a Linear to a 360-bin sigmoid salience; f0 from the cents of a
+weighted local average around the argmax or around a Viterbi path. The
+module carries torchcrepe's names (``conv{i}``, ``conv{i}_BN``,
+``classifier``), so a torchcrepe checkpoint loads as it is. The salience
+runs batched on the model's device; the decode runs on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..device import resolve_device
+from .cents import CENTS_MAPPING, N_CLASS, weighted_cents_decode
+
+SR = 16000
+WINDOW = 1024
+
+# capacity: full = 32x multiplier, tiny = 4x (the CREPE paper, torchcrepe)
+CAPACITIES = {"full": 32, "tiny": 4}
+BASE_FILTERS = (32, 4, 4, 4, 8, 16)
+KERNELS = (512, 64, 64, 64, 64, 64)
+STRIDES = (4, 1, 1, 1, 1, 1)
+# 'same'-style padding of the time axis: (254, 254) first, (31, 32) after
+PADS = ((254, 254),) + ((31, 32),) * 5
+# the JAX package's batch norm epsilon (flax's default), kept for parity
+BN_EPS = 1e-5
+
+
+class CrepeModel(nn.Module):
+    def __init__(self, capacity: str = "full"):
+        super().__init__()
+        mult = CAPACITIES[capacity]
+        chans = (1,) + tuple(f * mult for f in BASE_FILTERS)
+        for i in range(6):
+            setattr(self, f"conv{i + 1}", nn.Conv2d(
+                chans[i], chans[i + 1], (KERNELS[i], 1), (STRIDES[i], 1)))
+            setattr(self, f"conv{i + 1}_BN", nn.BatchNorm2d(chans[i + 1], eps=BN_EPS))
+        self.classifier = nn.Linear(4 * chans[-1], N_CLASS)
+
+    def forward(self, frames: torch.Tensor) -> torch.Tensor:
+        """frames [N, 1024] (already normalized) -> salience [N, 360]."""
+        x = frames[:, None, :, None]
+        for i in range(6):
+            x = F.pad(x, (0, 0) + PADS[i])
+            x = F.relu(getattr(self, f"conv{i + 1}")(x))
+            x = getattr(self, f"conv{i + 1}_BN")(x)
+            x = F.max_pool2d(x, (2, 1), (2, 1))
+        # [N, C, H, 1] -> time-major, channels inner
+        x = x.permute(0, 2, 1, 3).reshape(x.shape[0], -1)
+        return torch.sigmoid(self.classifier(x))
+
+
+def _decode_weighted(salience: np.ndarray) -> np.ndarray:
+    """Weighted local average around the argmax."""
+    sal = torch.from_numpy(salience)
+    return weighted_cents_decode(sal, torch.argmax(sal, dim=1)).numpy()
+
+
+# triangular transition prior: zero outside |bin distance| < 12 (torchcrepe)
+_VITERBI_W = 12
+
+
+def _decode_viterbi(salience: np.ndarray) -> np.ndarray:
+    """Viterbi smoothing over pitch bins (torchcrepe's default decoder):
+    a triangular transition prior over the bin distance, zero outside the
+    +-11-bin band, so each step is 23 shifted adds; then the weighted
+    average around the path."""
+    t, n = salience.shape
+    offs = np.arange(-(_VITERBI_W - 1), _VITERBI_W)
+    w_band = (_VITERBI_W - np.abs(offs)).astype(np.float64)
+    logw = np.log(w_band)
+    log_rowsum = np.log(np.convolve(np.ones(n), w_band, mode="same"))
+
+    obs = salience.astype(np.float64)
+    obs = obs / np.maximum(obs.sum(axis=1, keepdims=True), 1e-12)
+    log_obs = np.log(obs + 1e-12)
+
+    dp = np.full(n, np.log(1.0 / n)) + log_obs[0]
+    back = np.zeros((t, n), np.int32)
+    cols = np.arange(n)
+    for i in range(1, t):
+        a = dp - log_rowsum
+        cand = np.full((len(offs), n), -np.inf)
+        for oi, o in enumerate(offs):  # destination j <- source j - o
+            if o >= 0:
+                cand[oi, o:] = a[:n - o] + logw[oi]
+            else:
+                cand[oi, :n + o] = a[-o:] + logw[oi]
+        best = cand.argmax(axis=0)
+        dp = cand[best, cols] + log_obs[i]
+        back[i] = cols - offs[best]
+    path = np.zeros(t, np.int64)
+    path[-1] = dp.argmax()
+    for i in range(t - 2, -1, -1):
+        path[i] = back[i + 1, path[i + 1]]
+    return weighted_cents_decode(torch.from_numpy(salience),
+                                 torch.from_numpy(path)).numpy()
+
+
+class CREPE:
+    """Host-facing predictor: a ``CrepeModel`` on a device, audio in, f0
+    out."""
+
+    def __init__(self, capacity: str = "full", model: Optional[CrepeModel] = None,
+                 device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.capacity = capacity
+        self.model = (model or CrepeModel(capacity)).to(self.device).eval()
+
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, capacity: str = "full",
+                              device: Union[str, torch.device] = "cuda") -> "CREPE":
+        """Load a torchcrepe state_dict. The capacity is the checkpoint's
+        (the classifier takes 64 x multiplier inputs), whatever was asked."""
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        in_features = int(sd["classifier.weight"].shape[1])
+        detected = {64 * m: c for c, m in CAPACITIES.items()}.get(in_features)
+        if detected is None:
+            raise ValueError(
+                f"unrecognized crepe checkpoint ({in_features} classifier "
+                f"inputs; expected {sorted(64 * m for m in CAPACITIES.values())})")
+        if detected != capacity:
+            print(f"crepe checkpoint at {path} is capacity {detected!r}; "
+                  f"using it instead of the requested {capacity!r}")
+        model = CrepeModel(detected)
+        # every tensor but the batch norms' step counters
+        keys = [k for k in model.state_dict() if not k.endswith("num_batches_tracked")]
+        missing = [k for k in keys if k not in sd]
+        if missing:
+            raise KeyError(f"crepe checkpoint lacks {missing[:8]}")
+        model.load_state_dict({k: sd[k].float() for k in keys}, strict=False)
+        return cls(detected, model, device)
+
+    @torch.no_grad()
+    def salience(self, frames: torch.Tensor) -> torch.Tensor:
+        """[N, 1024] raw frames on the device -> [N, 360] salience."""
+        mu = frames.mean(dim=1, keepdim=True)
+        std = torch.clamp(frames.std(dim=1, keepdim=True, unbiased=True), min=1e-10)
+        return self.model((frames - mu) / std)
+
+    def predict(self, audio: np.ndarray, hop_length: int = 160,
+                fmin: float = 50.0, fmax: float = 1100.0,
+                decoder: str = "viterbi", batch_size: int = 512) -> np.ndarray:
+        """audio [T] at 16 kHz -> f0 [T // hop_length + 1] (centered
+        frames, torchcrepe.predict's pad=True)."""
+        audio = np.asarray(audio, np.float32)
+        pad = WINDOW // 2
+        padded = torch.from_numpy(np.pad(audio, (pad, pad))).to(self.device)
+        frames = padded.unfold(0, WINDOW, hop_length)
+        salience = torch.cat([self.salience(frames[i:i + batch_size])
+                              for i in range(0, frames.shape[0], batch_size)])
+        salience = salience.float().cpu().numpy()
+
+        cents_lo = 1200 * np.log2(fmin / 10.0)
+        cents_hi = 1200 * np.log2(fmax / 10.0)
+        salience[:, (CENTS_MAPPING < cents_lo) | (CENTS_MAPPING > cents_hi)] = 0.0
+        cents = (_decode_viterbi(salience) if decoder == "viterbi"
+                 else _decode_weighted(salience))
+        f0 = 10.0 * (2.0 ** (cents / 1200.0))
+        # no periodicity gate, as the reference; frames with no salience at
+        # all are unvoiced
+        f0[salience.max(axis=1) < 1e-3] = 0.0
+        return f0.astype(np.float32)
+

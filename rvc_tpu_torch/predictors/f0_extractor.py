@@ -1,18 +1,25 @@
-"""The f0 predictor registry (port of the registry half of
+"""The f0 predictor registry and the F0 extraction utility (port of
 ``rvc_tpu/predictors/f0_extractor.py``): method names, the staged
-checkpoints' places, hybrid-method parsing and predictor construction.
-
-Only ``rmvpe`` is ported; ``yin``, ``crepe``, ``crepe-tiny``, ``fcpe`` and
-the hybrids raise ``NotImplementedError`` until ROADMAP A.10 brings them.
+checkpoints' places, hybrid-method parsing, predictor construction on a
+device (rmvpe, fcpe, crepe, crepe-tiny, yin), and ``F0Extractor``, which
+extracts a file's contour, transcribes it to MIDI and plots it.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import os
 from typing import Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
+
+from ..device import resolve_device
+from ..utils.audio_io import load_audio
+
+SR = 16000
+HOP = 160
 
 # staged checkpoints, relative to the working directory
 DEFAULT_CKPTS = {
@@ -45,16 +52,13 @@ def parse_f0_methods(f0_method: str) -> list:
 
 
 def check_f0_method(f0_method: str) -> None:
-    """Raise unless the port serves this method: ``rmvpe`` alone."""
+    """Raise ``ValueError`` unless every method of ``f0_method`` (a name or
+    ``hybrid[a+b+...]``) is known."""
     methods = parse_f0_methods(f0_method)
-    for m in methods:
+    for m in methods or [f0_method]:
         if m not in KNOWN_METHODS:
             raise ValueError(f"unknown f0 method {m!r}; expected one of "
-                             f"{'/'.join(KNOWN_METHODS)}")
-    if methods != ["rmvpe"]:
-        raise NotImplementedError(
-            f"f0 method {f0_method!r} is not ported yet (ROADMAP A.10); "
-            "the port serves 'rmvpe'")
+                             f"{'/'.join(KNOWN_METHODS)} or hybrid[...] of them")
 
 
 def _resolve_ckpt(explicit: Optional[str], kind: str) -> Optional[str]:
@@ -71,17 +75,98 @@ def _resolve_ckpt(explicit: Optional[str], kind: str) -> Optional[str]:
 
 def build_predictors(f0_methods: Sequence[str] = ("rmvpe",),
                      rmvpe_ckpt: Optional[str] = None,
+                     fcpe_ckpt: Optional[str] = None,
+                     crepe_ckpt: Optional[str] = None,
                      device: Union[str, torch.device] = "cuda",
-                     ) -> Dict[str, Callable[[np.ndarray], np.ndarray]]:
-    """The requested predictors as audio -> f0 callables on ``device``; a
-    missing checkpoint gives random weights and a warning."""
-    from .rmvpe import RMVPE
-
+                     ) -> Dict[str, Callable[..., np.ndarray]]:
+    """The requested predictors as audio -> f0 callables on ``device``;
+    a missing checkpoint gives random weights and a warning."""
     out: Dict[str, Callable] = {}
     for m in f0_methods:
         check_f0_method(m)
-        ck = _resolve_ckpt(rmvpe_ckpt, "rmvpe")
-        mdl = (RMVPE.from_torch_checkpoint(ck, device) if ck
-               else RMVPE(device=device))
-        out[m] = mdl.infer_from_audio
+        if m == "rmvpe":
+            from .rmvpe import RMVPE
+
+            ck = _resolve_ckpt(rmvpe_ckpt, "rmvpe")
+            mdl = (RMVPE.from_torch_checkpoint(ck, device) if ck
+                   else RMVPE(device=device))
+            out[m] = mdl.infer_from_audio
+        elif m == "fcpe":
+            from .fcpe import FCPE
+
+            ck = _resolve_ckpt(fcpe_ckpt, "fcpe")
+            out[m] = (FCPE.from_torch_checkpoint(ck, device) if ck
+                      else FCPE(device=device)).compute_f0
+        elif m in ("crepe", "crepe-tiny"):
+            from .crepe import CREPE
+
+            cap = "tiny" if m.endswith("tiny") else "full"
+            ck = _resolve_ckpt(crepe_ckpt, "crepe")
+            out[m] = (CREPE.from_torch_checkpoint(ck, cap, device) if ck
+                      else CREPE(cap, device=device)).predict
+        else:
+            from .dsp_f0 import yin_f0_np
+
+            out[m] = functools.partial(yin_f0_np, device=resolve_device(device))
     return out
+
+
+@dataclasses.dataclass
+class F0Extractor:
+    """A file's f0 contour on the 10 ms grid, its MIDI transcription and
+    its plot. ``sample_rate`` is accepted for the reference's signature:
+    every predictor reads 16 kHz, so the file is loaded at 16 kHz."""
+
+    wav_path: str
+    sample_rate: int = SR
+    method: str = "rmvpe"
+    device: Union[str, torch.device] = "cuda"
+
+    @property
+    def hop_size_ms(self) -> float:
+        return HOP / SR * 1000.0
+
+    def extract_f0(self, predictor: Optional[Callable] = None) -> np.ndarray:
+        audio = load_audio(self.wav_path, SR)
+        if predictor is None:
+            predictor = build_predictors((self.method,), device=self.device)[self.method]
+        return np.asarray(predictor(audio))
+
+    def to_midi(self, output_path: Optional[str] = None,
+                tempo: Optional[float] = None,
+                f0: Optional[np.ndarray] = None) -> list:
+        """Transcribe the contour to MIDI note segments and write a .mid
+        file; the tempo is estimated from the audio when not given."""
+        from .f0_midi import f0_to_midi
+
+        if f0 is None:
+            f0 = self.extract_f0()
+        audio = load_audio(self.wav_path, SR) if tempo is None else None
+        out = output_path or self.wav_path.rsplit(".", 1)[0] + ".mid"
+        return f0_to_midi(f0, tempo=tempo, audio=audio, sr=SR, output_path=out)
+
+    def plot_f0(self, f0: Optional[np.ndarray] = None,
+                save_path: Optional[str] = None) -> Optional[str]:
+        """Plot the voiced frames to a PNG; None when matplotlib is absent."""
+        try:
+            import matplotlib
+        except ImportError:
+            print("f0 plot skipped: matplotlib is not installed")
+            return None
+        if f0 is None:
+            f0 = self.extract_f0()
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        t = np.arange(len(f0)) * self.hop_size_ms / 1000.0
+        fig, ax = plt.subplots(figsize=(10, 3))
+        voiced = f0 > 0
+        ax.plot(t[voiced], f0[voiced], ".", markersize=2)
+        ax.set_xlabel("time (s)")
+        ax.set_ylabel("f0 (Hz)")
+        ax.set_title(f"F0 ({self.method})")
+        out = save_path or self.wav_path.rsplit(".", 1)[0] + "_f0.png"
+        fig.tight_layout()
+        fig.savefig(out, dpi=120)
+        plt.close(fig)
+        return out

@@ -278,10 +278,9 @@ class RMVPE:
         return self.infer_batch([np.asarray(audio, np.float32)], thred)[0]
 
     @torch.no_grad()
-    def infer_batch(self, audios: List[np.ndarray],
-                    thred: float = 0.03) -> List[np.ndarray]:
-        """Several waveforms in one batch: reflect-padded to the group's
-        1 s bucket, the true frame counts sliced after."""
+    def salience_batch(self, audios: List[np.ndarray]) -> torch.Tensor:
+        """Several waveforms in one batch, reflect-padded to the group's
+        1 s bucket -> salience [B, bucket frames, 360] float32."""
         t_pad = bucket_samples(max(len(a) for a in audios))
         batch = np.stack([reflect_to(np.asarray(a, np.float32), t_pad)
                           for a in audios])
@@ -291,7 +290,12 @@ class RMVPE:
         pad = (-n_frames) % 32
         if pad:
             mel = F.pad(mel.transpose(1, 2), (0, pad), mode="reflect").transpose(1, 2)
-        hidden = self.model(mel.to(dtype)).float()
-        f0 = torch.stack([decode_salience(h, thred) for h in hidden[:, :n_frames]])
-        f0 = f0.cpu().numpy()
+        return self.model(mel.to(dtype)).float()[:, :n_frames]
+
+    def infer_batch(self, audios: List[np.ndarray],
+                    thred: float = 0.03) -> List[np.ndarray]:
+        """Several waveforms in one batch (``salience_batch``), the true
+        frame counts sliced after."""
+        hidden = self.salience_batch(audios)
+        f0 = torch.stack([decode_salience(h, thred) for h in hidden]).cpu().numpy()
         return [f0[i, : len(a) // HOP + 1] for i, a in enumerate(audios)]

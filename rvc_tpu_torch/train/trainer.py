@@ -216,8 +216,8 @@ class Trainer:
                 "waits for ROADMAP A.11")
         if args.use_orbax:
             raise NotImplementedError(
-                "--use_orbax: orbax checkpoints are the JAX package's (ROADMAP "
-                "A.13); the port writes .pth checkpoints")
+                "--use_orbax: orbax checkpoints are the JAX package's; the "
+                "port writes .pth checkpoints and will not have orbax")
         if args.device_indices is not None and len(args.device_indices) > 1:
             raise NotImplementedError(
                 f"--gpu {args.device_indices}: training on several cards waits "

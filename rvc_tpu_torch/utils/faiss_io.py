@@ -1,10 +1,12 @@
-"""Reader of faiss index files and a flat-index writer (port of
+"""Reader and writer of faiss index files (port of
 ``rvc_tpu/utils/faiss_io.py``).
 
 The reference ships its retrieval index as a faiss binary (``IVF{n},Flat``,
 or a flat index) and uses only the full vector matrix in id order
 (``faiss.read_index`` + ``reconstruct_n(0, ntotal)``). This module reads
-that matrix from the on-disk serialization directly (faiss >= 1.6.1):
+that matrix from the on-disk serialization directly, and writes a matrix
+back as an ``IndexFlat`` or an ``IndexIVFFlat`` (coarse quantizer from a
+small numpy k-means) that faiss reads (faiss >= 1.6.1):
 
   index file      := fourcc payload
   IndexFlat       := "IxF2"|"IxFI"|"IxFl" header xb_floats
@@ -25,8 +27,10 @@ stored ids; a truncated file or an unknown fourcc raises ``ValueError``.
 
 from __future__ import annotations
 
+import io
+import os
 import struct
-from typing import BinaryIO, Tuple
+from typing import BinaryIO, Optional, Tuple
 
 import numpy as np
 
@@ -38,6 +42,17 @@ _FLAT_FOURCCS = (FOURCC_FLAT_L2, FOURCC_FLAT_IP, FOURCC_FLAT_GENERIC)
 
 METRIC_INNER_PRODUCT = 0
 METRIC_L2 = 1
+
+
+def is_faiss_file(path: str) -> bool:
+    """Whether the file starts with the fourcc of a faiss index this module
+    reads."""
+    try:
+        with open(path, "rb") as f:
+            magic = f.read(4)
+    except OSError:
+        return False
+    return magic in _FLAT_FOURCCS or magic == FOURCC_IVF_FLAT
 
 
 def _read(f: BinaryIO, n: int) -> bytes:
@@ -186,3 +201,102 @@ def write_index_flat(path: str, vectors: np.ndarray,
     vectors = np.asarray(vectors, dtype=np.float32)
     with open(path, "wb") as f:
         _write_flat(f, vectors, metric_type)
+
+
+def default_nlist(n: int) -> int:
+    """The reference's IVF size rule: 16 sqrt(n), at most n / 39."""
+    return max(1, min(int(16 * np.sqrt(n)), n // 39 if n >= 39 else 1))
+
+
+def _kmeans_np(vectors: np.ndarray, k: int, iters: int = 10,
+               seed: int = 0) -> np.ndarray:
+    """Small numpy Lloyd for the coarse quantizer (its quality only
+    affects faiss's recall at a given nprobe, not the stored vectors)."""
+    rng = np.random.default_rng(seed)
+    n = vectors.shape[0]
+    cents = vectors[rng.choice(n, size=min(k, n), replace=False)].copy()
+    if cents.shape[0] < k:  # degenerate tiny input: pad with repeats
+        cents = np.concatenate(
+            [cents, cents[rng.integers(0, cents.shape[0], k - cents.shape[0])]])
+    for _ in range(iters):
+        assign = _assign_chunked(vectors, cents)
+        for c in range(k):
+            m = assign == c
+            if m.any():
+                cents[c] = vectors[m].mean(axis=0)
+    return cents
+
+
+def _assign_chunked(vectors: np.ndarray, cents: np.ndarray,
+                    chunk: int = 16384) -> np.ndarray:
+    c2 = (cents * cents).sum(axis=1)
+    out = np.empty(vectors.shape[0], dtype=np.int64)
+    for i in range(0, vectors.shape[0], chunk):
+        v = vectors[i:i + chunk]
+        d2 = c2[None, :] - 2.0 * (v @ cents.T)  # + |v|^2, constant per row
+        out[i:i + chunk] = np.argmin(d2, axis=1)
+    return out
+
+
+def write_index_ivf_flat(
+    path: str,
+    vectors: np.ndarray,
+    nlist: Optional[int] = None,
+    nprobe: int = 1,
+    centroids: Optional[np.ndarray] = None,
+    seed: int = 0,
+) -> int:
+    """Write an IndexIVFFlat file byte-compatible with ``faiss.write_index``.
+
+    Returns the nlist used (needed for the reference's
+    ``..._IVF{n}_Flat_...`` file-naming convention). Pass ``centroids`` to
+    reuse an existing coarse quantizer.
+    """
+    vectors = np.ascontiguousarray(vectors, dtype=np.float32)
+    n, d = vectors.shape
+    if nlist is None:
+        nlist = default_nlist(n)
+    if centroids is None:
+        centroids = _kmeans_np(vectors, nlist, seed=seed)
+    centroids = np.asarray(centroids, dtype=np.float32)
+    if centroids.shape != (nlist, d):
+        raise ValueError(f"centroids {centroids.shape} != ({nlist}, {d})")
+    assign = _assign_chunked(vectors, centroids)
+
+    lists_ids = [np.nonzero(assign == c)[0].astype("<i8")
+                 for c in range(nlist)]
+    buf = io.BytesIO()
+    buf.write(FOURCC_IVF_FLAT)
+    _write_header(buf, d, n, METRIC_L2)
+    _write_u64(buf, nlist)
+    _write_u64(buf, nprobe)
+    _write_flat(buf, centroids, METRIC_L2)   # coarse quantizer
+    buf.write(b"\x00")                        # DirectMap: NoMap
+    _write_u64(buf, 0)                        # empty direct-map array
+    buf.write(b"ilar")
+    _write_u64(buf, nlist)
+    _write_u64(buf, 4 * d)                    # code_size
+    n_non0 = sum(1 for ids in lists_ids if ids.size)
+    if n_non0 > nlist // 2:                   # faiss's density rule
+        buf.write(b"full")
+        _write_u64(buf, nlist)
+        buf.write(np.array([ids.size for ids in lists_ids],
+                           dtype="<u8").tobytes())
+    else:
+        buf.write(b"sprs")
+        pairs = []
+        for c, ids in enumerate(lists_ids):
+            if ids.size:
+                pairs.extend((c, ids.size))
+        _write_u64(buf, len(pairs))
+        buf.write(np.array(pairs, dtype="<u8").tobytes())
+    for ids in lists_ids:
+        if ids.size:
+            buf.write(vectors[ids].astype("<f4").tobytes())
+            buf.write(ids.tobytes())
+
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(buf.getvalue())
+    os.replace(tmp, path)
+    return nlist

@@ -1,5 +1,6 @@
 """ctypes binding of the repo's C++ audio engine (``native/audio_engine.cpp``:
-Kaiser-windowed polyphase resampler; ``native/flac_codec.cpp``: FLAC).
+Kaiser-windowed polyphase resampler, frame-RMS scanner and the
+preprocessing's normalization blend; ``native/flac_codec.cpp``: FLAC).
 
 The sources are compiled at first use with the flags of ``native/Makefile``
 into the gitignored ``build/native/`` beside the package (a library's name
@@ -77,6 +78,11 @@ def get_lib() -> Optional[ctypes.CDLL]:
         lib.resample_poly.restype = i64
         lib.resample_poly.argtypes = [f32p, i64, ctypes.c_double,
                                       ctypes.c_double, f32p]
+        lib.frame_rms.restype = i64
+        lib.frame_rms.argtypes = [f32p, i64, i64, i64, f32p, i64]
+        lib.normalize_blend.restype = ctypes.c_int32
+        lib.normalize_blend.argtypes = [f32p, i64, ctypes.c_float,
+                                        ctypes.c_float, f32p]
         lib.flac_probe.restype = ctypes.c_int32
         lib.flac_probe.argtypes = [u8p, i64, i32p, i32p, i32p,
                                    ctypes.POINTER(ctypes.c_int64)]
@@ -108,6 +114,33 @@ def resample(data: np.ndarray, orig_sr: int, target_sr: int) -> Optional[np.ndar
     out = np.empty(n_out, np.float32)
     lib.resample_poly(_fptr(x), len(x), float(orig_sr), float(target_sr),
                       _fptr(out))
+    return out
+
+
+def frame_rms(data: np.ndarray, frame: int, hop: int) -> Optional[np.ndarray]:
+    """RMS of each ``frame``-sample frame every ``hop`` samples, centered
+    with zero padding; None without the library."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(data, np.float32)
+    n_frames = (len(x) + 2 * (frame // 2) - frame) // hop + 1
+    out = np.empty(n_frames, np.float32)
+    written = lib.frame_rms(_fptr(x), len(x), frame, hop, _fptr(out), n_frames)
+    return out[:written]
+
+
+def normalize_blend(data: np.ndarray, max_amp: float = 0.9,
+                    alpha: float = 0.75) -> Optional[np.ndarray]:
+    """``x / peak * max_amp * alpha + (1 - alpha) * x``; None without the
+    library, ``ValueError`` for a take the engine rejects (peak > 2.5)."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(data, np.float32)
+    out = np.empty_like(x)
+    if lib.normalize_blend(_fptr(x), len(x), max_amp, alpha, _fptr(out)) != 0:
+        raise ValueError("rejected: peak > 2.5")
     return out
 
 

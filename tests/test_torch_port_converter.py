@@ -140,7 +140,7 @@ def test_no_f0_model_converts(files, tmp_path, monkeypatch):
     (["--post_process", "True", "--reverb", "True"], "post-FX"),
     (["--clean_audio", "True"], "clean_audio"),
     (["--export_format", "MP3"], "export format"),
-    (["--f0_method", "crepe"], "A.10"),
+    (["--export_format", "OGG"], "export format"),
 ])
 def test_unported_options_raise(files, tmp_path, monkeypatch, flags, match):
     from rvc_tpu_torch import cli

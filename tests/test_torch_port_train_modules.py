@@ -595,7 +595,7 @@ def test_train_config_and_trainer_args_follow_the_flags():
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--discriminators", "mpd,mrd"], "A.11"), (["--use_orbax", "True"], "A.13"),
+    (["--discriminators", "mpd,mrd"], "A.11"), (["--use_orbax", "True"], "will not have orbax"),
     (["--gpu", "0-1"], "A.13"), (["--vocoder", "RefineGAN"], "A.9")])
 def test_unported_train_options_raise(tmp_path, monkeypatch, extra, item):
     from rvc_tpu_torch import cli

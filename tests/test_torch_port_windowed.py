@@ -238,9 +238,12 @@ def test_windowed_f0_stays_float32_in_a_bf16_pipeline():
 
 
 def test_unported_f0_methods_raise(windowed):
+    """Every f0 method is ported: a learned one whose predictor was not
+    passed raises naming it (the fused RMVPE path does not stand in for
+    it), and an unknown method raises."""
     _, (tpipe, trm) = windowed
-    for method in ("crepe", "fcpe", "yin", "hybrid[rmvpe+fcpe]"):
-        with pytest.raises(NotImplementedError, match="A.10"):
+    for method in ("crepe", "fcpe", "crepe-tiny", "hybrid[rmvpe+fcpe]"):
+        with pytest.raises(ValueError, match="unavailable"):
             tpipe.pipeline(_audio(8000), f0_method=method)
     with pytest.raises(ValueError, match="unknown f0 method"):
         tpipe.pipeline(_audio(8000), f0_method="pyin")
