@@ -43,9 +43,22 @@ Phases, in this order, each printing one JSON line:
            hybrid[rmvpe+fcpe]; then K3's ms per assignment against its bound
            and cdist + argmin, and each f0 predictor on the card against the
            CPU in float32
+  zoo      the rest of the model zoo at full width: 10 s through the CLI's
+           ``infer`` with NSF HiFi-GAN at 32 and 40 kHz, MRF HiFi-GAN at
+           40 kHz and RefineGAN at 32 kHz (deployable .pth files in the
+           reference layout of each), each then warm through one
+           ``VoiceConverter`` (wall, decoder time, no weight cache rebuilt);
+           small fp32 MRF HiFi-GAN and RefineGAN models on the card against
+           the CPU; every discriminator family of the registry in training
+           steps with the 48 kHz generator (bf16, batch 8); ``train`` with
+           MRF HiFi-GAN at 40 kHz (mpd,mrd; 2 epochs, a resume to 3) and
+           RefineGAN at 32 kHz (mpd,mssbcqt; 2 epochs), each trained model
+           converting 10 s
   kernels  hold each kernel against its plain PyTorch version at the shapes
-           every path recorded (bf16 and f32: T up to 3.2 M, batch 4; K3 at
-           360 000 x 10 000 x 768 in three 16 384-row chunks) and at
+           every path recorded (every stage tail, and every chain run on its
+           own, at its leaky slope, RefineGAN's 0.2 too; forward, and at the
+           training shapes gradient; bf16 and f32: T up to 3.2 M, batch 4;
+           K3 at 360 000 x 10 000 x 768 in three 16 384-row chunks) and at
            shapes off the path
            (K1 in bf16 and f32 at batch 2, T = 1, 77, one tile +- 1, 9001,
            C = 16 and a padded C = 48, two chains with two dilations; K2 at
@@ -209,17 +222,17 @@ def _rand_chain(gen, c, k, device, dil):
     return [w() for _ in dil], [b() for _ in dil], [w() for _ in dil], [b() for _ in dil]
 
 
-def _library_chain(x, chain, dil):
+def _library_chain(x, chain, dil, slope=0.1):
     """cuDNN conv chain in the input's own dtype (the yardstick)."""
     import torch.nn.functional as F
 
     y = x
     for d, w1, b1, w2, b2 in zip(dil, *chain):
         k = w1.shape[-1]
-        a = F.leaky_relu(y, 0.1)
+        a = F.leaky_relu(y, slope)
         m = F.conv1d(a, w1.to(x.dtype), b1.to(x.dtype), padding=(k * d - d) // 2,
                      dilation=d)
-        y = y + F.conv1d(F.leaky_relu(m, 0.1), w2.to(x.dtype), b2.to(x.dtype),
+        y = y + F.conv1d(F.leaky_relu(m, slope), w2.to(x.dtype), b2.to(x.dtype),
                          padding=(k - 1) // 2)
     return y
 
@@ -231,45 +244,65 @@ def _err(ref, out):
 
 
 def record_path_shapes(fn, grad_shapes=None):
-    """Run fn() with the decoder's stage tails and the retrieval search
+    """Run fn() with the decoders' stage tails and the retrieval search
     wrapped to record the shapes the main path gives the kernels:
-    [("stage", C, T, dtype, kernel sizes, dilations, batch)] and
-    [("knn", Q, N, D, k)]. Stage shapes met with gradients on (a training
-    step's) are also appended to ``grad_shapes`` when given."""
+    [("stage", C, T, dtype, kernel sizes, dilations, batch, slope)] for a
+    stage tail (``nsf._resblock_stage``: the NSF, plain and MRF HiFi-GAN
+    decoders), [("chain", C, T, dtype, (K,), dilations, batch, slope)] for
+    a chain run on its own (``ChainBlock.forward`` outside a stage tail:
+    RefineGAN's), and [("knn", Q, N, D, k)]. Shapes met with gradients on
+    (a training step's) are also appended to ``grad_shapes`` when given."""
     import torch
 
+    from rvc_tpu_torch.models import commons
     from rvc_tpu_torch.models.generators import nsf
     from rvc_tpu_torch.ops import retrieval as rt
 
-    shapes = []
-    stage, knn = nsf._resblock_stage, rt.knn_topk
+    shapes, in_stage = [], []
+    stage, chain, knn = nsf._resblock_stage, commons.ChainBlock.forward, rt.knn_topk
+
+    def record(sh):
+        shapes.append(sh)
+        if grad_shapes is not None and torch.is_grad_enabled():
+            grad_shapes.append(sh)
 
     def stage_hook(x, blocks, cache=None):
-        shapes.append(("stage", x.shape[1], x.shape[2], x.dtype,
-                       tuple(blk.kernel_size for blk in blocks),
-                       tuple(blocks[0].dilations), x.shape[0]))
-        if grad_shapes is not None and torch.is_grad_enabled():
-            grad_shapes.append(shapes[-1])
-        return stage(x, blocks, cache)
+        record(("stage", x.shape[1], x.shape[2], x.dtype,
+                tuple(blk.kernel_size for blk in blocks),
+                tuple(blocks[0].dilations), x.shape[0], blocks[0].slope))
+        in_stage.append(1)
+        try:
+            return stage(x, blocks, cache)
+        finally:
+            in_stage.pop()
+
+    def chain_hook(blk, x):
+        if not in_stage:
+            record(("chain", x.shape[1], x.shape[2], x.dtype, (blk.kernel_size,),
+                    tuple(blk.dilations), x.shape[0], blk.slope))
+        return chain(blk, x)
 
     def knn_hook(q, v, k=8):
         shapes.append(("knn", q.shape[0], v.shape[0], q.shape[1], k))
         return knn(q, v, k)
 
-    nsf._resblock_stage, rt.knn_topk = stage_hook, knn_hook
+    nsf._resblock_stage, commons.ChainBlock.forward, rt.knn_topk = (
+        stage_hook, chain_hook, knn_hook)
     try:
         fn()
     finally:
-        nsf._resblock_stage, rt.knn_topk = stage, knn
+        nsf._resblock_stage, commons.ChainBlock.forward, rt.knn_topk = stage, chain, knn
     return shapes
 
 
 def _shape_key(shape):
-    """A recorded shape as a hashable key, dtype by name, batch 1 if absent."""
-    if shape[0] == "stage":
-        _, c, t, dtype, ks, dil, *b = shape
-        return ("stage", c, t, str(dtype).split(".")[-1], tuple(ks), tuple(dil),
-                b[0] if b else 1)
+    """A recorded shape as a hashable key, dtype by name, batch 1 and slope
+    0.1 if absent."""
+    if shape[0] in ("stage", "chain"):
+        kind, c, t, dtype, ks, dil, *rest = shape
+        b, slope = (list(rest) + [1, 0.1][len(rest):])[:2]
+        return (kind, c, t, str(dtype).split(".")[-1], tuple(ks), tuple(dil), b,
+                float(slope))
     return tuple(shape)
 
 
@@ -288,8 +321,8 @@ def phase_kernels(paths, grad_uses=None):
     dtype and in f32, then at the shapes off the path. The wrappers get a
     weight cache, as the modules give them, so the times are the kernels'.
     Returns per-path, per-kernel records summed over each path's launches.
-    ``grad_uses`` (stage shape key -> calls per training step) adds the
-    gradient checks of ``phase_kernel_grads``."""
+    ``grad_uses`` (shape key -> {training run: calls per step of that
+    run}) adds the gradient checks of ``phase_kernel_grads``."""
     import torch
 
     from rvc_tpu_torch.models.generators.nsf import MRF_MAX_CHANNELS
@@ -308,7 +341,8 @@ def phase_kernels(paths, grad_uses=None):
                   for n in ("mrf_stage", "resblock_chain", "knn_topk")}
            for path in paths}
 
-    def check(name, key, fn, plain, lib, ref_out, tol, bnd, on_paths, timed=None):
+    def check(name, key, fn, plain, lib, ref_out, tol, bnd, on_paths, timed=None,
+              extra=None):
         out = fn()
         ref = ref_out()
         torch.cuda.synchronize()
@@ -317,21 +351,23 @@ def phase_kernels(paths, grad_uses=None):
                "tol": tol, "ms": gpu_time_ms(timed or fn), "plain_ms": gpu_time_ms(plain, 3),
                "library_ms": gpu_time_ms(lib, 3), "bound_ms": bnd[0],
                "bound_by": "operations" if bnd[2] >= bnd[1] else "bytes",
-               "on_path": dict(on_paths)}
+               "on_path": dict(on_paths),
+               **{k: gpu_time_ms(f, 3) for k, f in (extra or {}).items()}}
         emit({"phase": "kernel_check", **row})
         require(rel <= tol, f"{name} {key}: rel err {rel} > {tol}")
         for path, n in on_paths.items():  # the paths' launches: sum into them
             r = rec[path][name]
             r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-            for f in ("ms", "plain_ms", "library_ms"):
-                r[f] += n * row[f]
+            for f in ("ms", "plain_ms", "library_ms", "cudnn_bf16_ms"):
+                if f in row:
+                    r[f] = r.get(f, 0.0) + n * row[f]
             for f, v in zip(("bound_ms", "bytes_ms", "ops_ms"), bnd):
                 r[f] += n * v
 
     for key, counts in uses.items():
-        if key[0] != "stage":
+        if key[0] not in ("stage", "chain"):
             continue
-        _, c, t, path_dtype, ks, dil, b = key
+        kind, c, t, path_dtype, ks, dil, b, slope = key
         chains = [_rand_chain(gen, c, k, dev, dil) for k in ks]
         caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
         x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
@@ -339,32 +375,33 @@ def phase_kernels(paths, grad_uses=None):
             x = x32.to(dtype)
             nbytes = 2 * x.numel() * x.element_size()
             dname = str(dtype).split(".")[-1]
-            key_row = {"B": b, "C": c, "T": t, "dtype": dname}
+            key_row = {"B": b, "C": c, "T": t, "dtype": dname, "slope": slope}
             on_paths = counts if dname == path_dtype else {}
-            if c <= MRF_MAX_CHANNELS:  # K1: all chains in one launch
+            tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
+            if kind == "stage" and c <= MRF_MAX_CHANNELS:  # K1: one launch
                 flops = 2.0 * b * sum(2 * len(dil) * k * c * c * t for k in ks)
                 peak = [(flops, PEAK_BF16)] if dtype == torch.bfloat16 else \
                     [(3 * flops, PEAK_TF32)]
                 nbytes += sum(2 * len(dil) * k * c * c for k in ks) * (
                     2 if dtype == torch.bfloat16 else 4)
                 check("mrf_stage", key_row,
-                      lambda: rb.mrf_stage(x, chains, ks, dil, cache=caches[-1]),
-                      lambda: rb.mrf_stage_plain(x, chains, dil),
-                      lambda: [_library_chain(x, ch, dil) for ch in chains],
-                      lambda: rb.mrf_stage_plain(x, chains, dil),
-                      2e-2 if dtype == torch.bfloat16 else 1e-4,
-                      bound(nbytes, peak), on_paths)
+                      lambda: rb.mrf_stage(x, chains, ks, dil, slope, cache=caches[-1]),
+                      lambda: rb.mrf_stage_plain(x, chains, dil, slope),
+                      lambda: [_library_chain(x, ch, dil, slope) for ch in chains],
+                      lambda: rb.mrf_stage_plain(x, chains, dil, slope),
+                      tol, bound(nbytes, peak), on_paths)
             else:  # K2: two conv launches per dilation of each chain
                 for k, ch, cache in zip(ks, chains, caches):
                     flops = 2.0 * 2 * len(dil) * k * c * c * t * b
                     check("resblock_chain", {**key_row, "K": k},
-                          lambda: rb.resblock_chain(x, *ch, dil, cache=cache),
-                          lambda: rb.resblock_chain_plain(x, *ch, dil),
-                          lambda: _library_chain(x.float(), ch, dil),
-                          lambda: rb.resblock_chain_plain(x, *ch, dil),
-                          2e-2 if dtype == torch.bfloat16 else 1e-4,
-                          bound(nbytes + 4 * 2 * len(dil) * k * c * c,
-                                [(3 * flops, PEAK_TF32)]), on_paths)
+                          lambda: rb.resblock_chain(x, *ch, dil, slope, cache=cache),
+                          lambda: rb.resblock_chain_plain(x, *ch, dil, slope),
+                          lambda: _library_chain(x.float(), ch, dil, slope),
+                          lambda: rb.resblock_chain_plain(x, *ch, dil, slope),
+                          tol, bound(nbytes + 4 * 2 * len(dil) * k * c * c,
+                                     [(3 * flops, PEAK_TF32)]), on_paths,
+                          extra={"cudnn_bf16_ms": lambda: _library_chain(
+                              x.to(torch.bfloat16), ch, dil, slope)})
             del x
         del chains, x32
         torch.cuda.empty_cache()
@@ -511,13 +548,15 @@ def phase_kernel_grads(grad_uses, gen):
     from rvc_tpu_torch.ops import resblock as rb
 
     dev = torch.device("cuda")
-    per_step = {n: collections.Counter() for n in ("mrf_stage", "resblock_chain")}
-    for key, calls in grad_uses.items():
-        _, c, t, path_dtype, ks, dil, b = key
+    per_step = collections.defaultdict(
+        lambda: {n: collections.Counter() for n in ("mrf_stage", "resblock_chain")})
+    for key, runs in grad_uses.items():
+        kind, c, t, path_dtype, ks, dil, b, slope = key
         chains32 = [_rand_chain(gen, c, k, dev, dil) for k in ks]
         x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
         cot32 = torch.randn((b, c, t), generator=gen).to(dev)
-        name = "mrf_stage" if c <= MRF_MAX_CHANNELS else "resblock_chain"
+        name = ("mrf_stage" if kind == "stage" and c <= MRF_MAX_CHANNELS
+                else "resblock_chain")
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
             x = x32.to(dtype).requires_grad_()
@@ -528,21 +567,22 @@ def phase_kernel_grads(grad_uses, gen):
             caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
             if name == "mrf_stage":
                 def kernel():
-                    return rb.mrf_stage(x, chains, ks, dil, cache=caches[-1])
+                    return rb.mrf_stage(x, chains, ks, dil, slope, cache=caches[-1])
 
                 def plain():
-                    return rb.mrf_stage_plain(x, chains, dil)
-            else:  # the wide stage: each chain through K2, then the mean
+                    return rb.mrf_stage_plain(x, chains, dil, slope)
+            else:  # a wide stage (each chain through K2, then the mean) or one chain
                 def kernel():
-                    return sum(rb.resblock_chain(x, *ch, dil, cache=cc)
+                    return sum(rb.resblock_chain(x, *ch, dil, slope, cache=cc)
                                for ch, cc in zip(chains, caches)) / len(chains)
 
                 def plain():
-                    return sum(rb.resblock_chain_plain(x, *ch, dil)
+                    return sum(rb.resblock_chain_plain(x, *ch, dil, slope)
                                for ch in chains) / len(chains)
 
             def library():
-                return sum(_library_chain(x, ch, dil) for ch in chains) / len(chains)
+                return sum(_library_chain(x, ch, dil, slope)
+                           for ch in chains) / len(chains)
 
             out, ref = kernel(), plain()
             grads = torch.autograd.grad(out, flat, cot, retain_graph=True)
@@ -562,9 +602,9 @@ def phase_kernel_grads(grad_uses, gen):
             grad_max_rel = max(_err(r, g)[1] for r, g in zip(ref_grads, grads))
             fwd_tol, grad_tol = (2e-2, 1e-1) if dtype == torch.bfloat16 else (1e-4, 1e-4)
             row = {"kernel": name, "B": b, "C": c, "T": t, "dtype": dname,
-                   "fwd_rel_err": fwd_rel, "fwd_tol": fwd_tol,
+                   "ks": list(ks), "slope": slope, "fwd_rel_err": fwd_rel, "fwd_tol": fwd_tol,
                    "grad_norm_rel_err": grad_rel, "grad_tol": grad_tol,
-                   "grad_max_abs_over_max_ref": grad_max_rel, "calls_per_step": calls}
+                   "grad_max_abs_over_max_ref": grad_max_rel, "calls_per_step": runs}
             if dname == path_dtype:
                 flops = 2.0 * b * sum(2 * len(dil) * k * c * c * t for k in ks)
                 wbytes = sum(2 * len(dil) * k * c * c for k in ks) * 2
@@ -582,9 +622,10 @@ def phase_kernel_grads(grad_uses, gen):
                     lambda: torch.autograd.grad(plain(), flat, cot), 3)
                 row["cudnn_fwd_bwd_ms"] = gpu_time_ms(
                     lambda: torch.autograd.grad(library(), flat, cot), 3)
-                for f in ("fwd_ms", "fwd_bound_ms", "bwd_recompute_ms", "bwd_bound_ms",
-                          "plain_fwd_bwd_ms", "cudnn_fwd_bwd_ms"):
-                    per_step[name][f] += calls * row[f]
+                for run, calls in runs.items():
+                    for f in ("fwd_ms", "fwd_bound_ms", "bwd_recompute_ms", "bwd_bound_ms",
+                              "plain_fwd_bwd_ms", "cudnn_fwd_bwd_ms"):
+                        per_step[run][name][f] += calls * row[f]
             emit({"phase": "kernel_grad_check", **row})
             require(fwd_rel <= fwd_tol and grad_rel <= grad_tol,
                     f"{name} B={b} C={c} T={t} {dname}: forward {fwd_rel}, gradient {grad_rel}")
@@ -592,7 +633,8 @@ def phase_kernel_grads(grad_uses, gen):
         del chains32, x32, cot32
         torch.cuda.empty_cache()
     emit({"phase": "train_kernels_per_step",
-          "per_step": {n: dict(v) for n, v in per_step.items()}})
+          "per_step": {run: {n: dict(v) for n, v in by_kernel.items()}
+                       for run, by_kernel in per_step.items()}})
 
 
 def _fill_random(module, rng, scale=0.02):
@@ -712,9 +754,16 @@ def phase_small_reference():
 
 def _weight_cache_builds(decoder) -> int:
     """How often the decoder's stage tails have folded or packed weights:
-    the builds of every weight cache on its ResBlocks and stages."""
-    return (sum(blk._folded.builds + blk.packed.builds for blk in decoder.resblocks)
-            + sum(c.builds for c in decoder._stage_caches))
+    the builds of every weight cache on its modules (each chain's and
+    each stage's), whichever the decoder."""
+    from rvc_tpu_torch.ops.resblock import WeightCache
+
+    n = 0
+    for m in decoder.modules():
+        for v in vars(m).values():
+            for c in (v if isinstance(v, list) else [v]):
+                n += c.builds if isinstance(c, WeightCache) else 0
+    return n
 
 
 def _segment_len(pipe, n16: int) -> int:
@@ -1115,11 +1164,11 @@ def _windowed_len(pipe, audio16: np.ndarray) -> int:
     return sum(_segment_len(pipe, n) - 2 * pipe.t_pad_tgt for n in lens)
 
 
-def _check_wav(path, n_expect: int, what: str) -> np.ndarray:
+def _check_wav(path, n_expect: int, what: str, rate: int = 48000) -> np.ndarray:
     from rvc_tpu_torch.utils.audio_io import read_wav
 
     data, sr = read_wav(path)
-    require(sr == 48000, f"{what}: output at {sr} Hz, not 48000")
+    require(sr == rate, f"{what}: output at {sr} Hz, not {rate}")
     require(data.shape == (n_expect,), f"{what}: {data.shape} samples != ({n_expect},)")
     require(bool(np.isfinite(data).all()) and float(np.abs(data).max()) <= 1.0,
             f"{what}: output not finite or beyond |x| <= 1")
@@ -1321,8 +1370,8 @@ TRAIN_SEGMENT = 17280   # samples of a training slice (36 latent frames)
 TRAIN_BATCH = 8
 
 
-def _write_train_dataset(exp: str, rng) -> None:
-    """40 clips of 2-8 s at 48 kHz (float WAV), features [T50, 768], coarse
+def _write_train_dataset(exp: str, rng, sr: int = 48000) -> None:
+    """40 clips of 2-8 s at ``sr`` (float WAV), features [T50, 768], coarse
     f0 in 1..255 and f0 in Hz, and filelist.txt with rows
     wav|feats.npy|f0.npy|f0nsf.npy|sid, in the layout train/data.py reads."""
     from rvc_tpu_torch.utils.audio_io import write_wav
@@ -1330,11 +1379,11 @@ def _write_train_dataset(exp: str, rng) -> None:
     rows = []
     for i in range(TRAIN_CLIPS):
         frames = int(rng.integers(200, 801))
-        tt = np.arange(frames * 480) / 48000
+        tt = np.arange(frames * (sr // 100)) / sr
         f0_hz = 120.0 + 80.0 * rng.random()
         wav = 0.3 * np.sin(2 * np.pi * f0_hz * tt) + 0.02 * rng.normal(size=tt.size)
         base = os.path.join(exp, f"clip{i:02d}")
-        write_wav(base + ".wav", wav.astype(np.float32), 48000, "FLOAT")
+        write_wav(base + ".wav", wav.astype(np.float32), sr, "FLOAT")
         f0 = np.full(frames, f0_hz, np.float32)
         np.save(base + ".feats.npy", rng.normal(size=(frames // 2 + 1, 768)).astype(np.float32))
         np.save(base + ".f0.npy", rng.integers(1, 256, size=frames).astype(np.int64))
@@ -1651,6 +1700,384 @@ def phase_train(smi: str, root: str):
     del trainer, first, second
     torch.cuda.empty_cache()
     return counts, shapes, grad_shapes, n_steps
+
+
+# -- the model zoo: every vocoder, every rate, every discriminator ------------
+
+# (tag, vocoder, rate) of the zoo's conversions: every preset rate, every
+# vocoder once
+ZOO_MODELS = (("nsf32", "HiFi-GAN", 32000), ("nsf40", "HiFi-GAN", 40000),
+              ("mrf40", "MRF HiFi-GAN", 40000), ("refinegan32", "RefineGAN", 32000))
+ZOO_FAMILIES = ("mpd_v1", "mrd", "msstft", "mssbcqt", "msd", "fregan_mpd", "mmsd")
+ZOO_FAMILY_STEPS = 3
+# (tag, vocoder, rate, discriminators, epochs of the first call, of the resume)
+ZOO_TRAININGS = (("mrf40", "MRF HiFi-GAN", 40000, "mpd,mrd", 2, 3),
+                 ("refinegan32", "RefineGAN", 32000, "mpd,mssbcqt", 2, None))
+
+
+def _zoo_launch_ok(vocoder: str, counts: dict) -> bool:
+    """K2 runs every decoder's stage tails; K1 all but RefineGAN's."""
+    return counts["resblock_chain"] > 0 and (vocoder == "RefineGAN"
+                                             or counts["mrf_stage"] > 0)
+
+
+def _decoder_timer(decoder):
+    """CUDA events around each call of ``decoder``: (events, remove)."""
+    import torch
+
+    events = []
+
+    def pre(mod, args):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events.append([ev])
+
+    def post(mod, args, out):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        events[-1].append(ev)
+
+    handles = [decoder.register_forward_pre_hook(pre), decoder.register_forward_hook(post)]
+    return events, lambda: [h.remove() for h in handles]
+
+
+def _zoo_conversions(smi: str, files: dict, root: str, rng):
+    """Four 10 s conversions through the CLI's ``infer``, each with a
+    full-width deployable .pth in the reference layout of its vocoder
+    (random weights, numpy seed 0, scale 0.02) and the 65536 x 768 index;
+    then the same file through one warm ``VoiceConverter``: wall (median of
+    3), decoder device time, and no weight cache rebuilt."""
+    import torch
+
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.infer.converter import VoiceConverter
+    from rvc_tpu_torch.models.synthesizer import Synthesizer
+    from rvc_tpu_torch.utils.audio_io import write_wav
+    from rvc_tpu_torch.utils.checkpoints import export_rvc_pth
+
+    wav = os.path.join(root, "zoo_in.wav")
+    audio = _audio(10.0, np.random.default_rng(7))
+    write_wav(wav, audio, 16000)
+    audio = audio / max(np.abs(audio).max() / 0.95, 1.0)
+    launches, shapes, rows = {}, {}, {}
+    for tag, vocoder, sr in ZOO_MODELS:
+        cfg = get_config(sr, vocoder=vocoder)
+        synth = Synthesizer.from_config(cfg, device="cpu")
+        _fill_random(synth, rng)
+        pth = os.path.join(root, f"zoo_{tag}.pth")
+        export_rvc_pth(synth, pth, cfg)
+        del synth
+        out = os.path.join(root, f"zoo_{tag}_out.wav")
+        argv = ["infer", "--input_path", wav, "--output_path", out, "--pth_path", pth,
+                *_flags(files)]
+        path = f"zoo_{tag}"
+        shapes[path] = record_path_shapes(lambda: _cli(argv, root))
+        with _Probe() as probe:
+            _reset_counts()
+            cli_wall = _cli(argv, root)
+            launches[path] = _counts()
+        require(_zoo_launch_ok(vocoder, launches[path]) and launches[path]["knn_topk"] > 0,
+                f"{tag}: kernels not launched: {launches[path]}")
+        data = _check_wav(out, _windowed_len(probe.pipe, audio), f"zoo {tag}", sr)
+
+        kw = dict(model_path=pth, index_path=files["index"], f0_method="rmvpe",
+                  index_rate=0.75, protect=0.33, pitch=2)
+        cwd = os.getcwd()
+        os.chdir(root)
+        try:
+            vc = VoiceConverter()
+            vc.convert_audio(wav, out, **kw)
+            dec = vc.pipeline.synthesizer.dec
+            builds = _weight_cache_builds(dec)
+            events, remove = _decoder_timer(dec)
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                vc.convert_audio(wav, out, **kw)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            remove()
+            rebuilt = _weight_cache_builds(dec) - builds
+        finally:
+            os.chdir(cwd)
+        require(builds > 0 and rebuilt == 0,
+                f"{tag}: weight caches built {builds}, rebuilt {rebuilt} by warm conversions")
+        dec_ms = [a.elapsed_time(b) for a, b in events]
+        rows[tag] = {"vocoder": vocoder, "sample_rate": sr, "samples": int(data.shape[0]),
+                     "peak_abs": float(np.abs(data).max()), "launches": launches[path],
+                     "cli_wall_s": cli_wall, "wall_s": statistics.median(walls),
+                     "wall_s_all": walls, "decoder_ms": statistics.median(dec_ms),
+                     "decoder_ms_all": dec_ms, "weight_cache_builds": builds}
+        emit({"phase": "zoo_conversion", "gpu": smi, "model": tag, **rows[tag],
+              "kernel_shapes": [[str(v) if isinstance(v, torch.dtype) else v for v in sh]
+                                for sh in shapes[path]]})
+        del vc
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches, shapes, rows
+
+
+def _zoo_small():
+    """A small fp32 MRF HiFi-GAN and RefineGAN synthesizer on the card
+    (kernels) against the same on the CPU (plain versions), within 1e-3."""
+    import torch
+
+    from rvc_tpu_torch.configs import get_config
+
+    errs = {}
+    for vocoder in ("MRF HiFi-GAN", "RefineGAN"):
+        cfg = get_config(48000, vocoder=vocoder, **TINY_MODEL)
+        rng = np.random.default_rng(3)
+        t = 40
+        inputs = [rng.normal(size=(2, t, 768)).astype(np.float32), np.array([t, t - 9]),
+                  rng.integers(1, 256, size=(2, t)), 150 + 100 * rng.random((2, t)),
+                  np.array([1, 2])]
+        outs = {}
+        for device in ("cpu", "cuda"):
+            synth = _synth(cfg, True, device)
+            _fill_random(synth, np.random.default_rng(4), 0.1)
+            args = [torch.from_numpy(np.asarray(a)).to(device) for a in inputs]
+            args[3] = args[3].float()
+            _reset_counts()
+            outs[device] = synth.infer(*args)[0].float().cpu()
+            counts = _counts()
+        err = float((outs["cpu"] - outs["cuda"]).abs().max())
+        errs[vocoder] = {"max_abs_err_vs_cpu_plain": err, "launches": counts,
+                         "samples": int(outs["cuda"].shape[1])}
+        require(err <= 1e-3, f"small {vocoder}: card vs CPU plain {err} > 1e-3")
+        require(counts["resblock_chain"] > 0, f"small {vocoder}: K2 not launched: {counts}")
+    return errs
+
+
+def _zoo_batch(b: int, frames: int, device):
+    """A seeded full-width 48 kHz training batch (numpy seed 8)."""
+    import torch
+
+    rng = np.random.default_rng(8)
+    tt = np.arange(frames * 480) / 48000
+    batch = {"phone": rng.normal(size=(b, frames, 768)).astype(np.float32),
+             "phone_lengths": np.full(b, frames, np.int32),
+             "pitch": rng.integers(1, 256, size=(b, frames)).astype(np.int64),
+             "pitchf": np.full((b, frames), 180.0, np.float32),
+             "spec": np.abs(rng.normal(size=(b, frames, 1025))).astype(np.float32),
+             "spec_lengths": np.full(b, frames, np.int32),
+             "wave": (0.3 * np.sin(2 * np.pi * 180 * tt)[None, :, None]
+                      + 0.02 * rng.normal(size=(b, frames * 480, 1))).astype(np.float32),
+             "sid": np.arange(b, dtype=np.int64) % 2}
+    return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+
+
+def _zoo_families(smi: str):
+    """Each discriminator family of the JAX registry, at full width, in
+    ``ZOO_FAMILY_STEPS`` training steps with the 48 kHz NSF generator
+    (bf16, batch 8, 17 280-sample slices, cuDNN autotuning off): finite
+    losses at every step; after step 1 every D parameter's gradient finite
+    and none all zero; ms per warm step, D forward + backward ms, peak
+    memory."""
+    import dataclasses
+
+    import torch
+
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.models.custom_discriminators import build_discriminator
+    from rvc_tpu_torch.models.synthesizer import Synthesizer
+    from rvc_tpu_torch.train import losses as L
+    from rvc_tpu_torch.train.optimizers import module_optimizer
+    from rvc_tpu_torch.train.step import TrainStep
+    from rvc_tpu_torch.train.trainer import init_parameters
+
+    cfg = get_config(48000)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=TRAIN_BATCH, segment_size=TRAIN_SEGMENT, bf16_run=True))
+    gen = torch.Generator().manual_seed(11)
+    g = Synthesizer.from_config(cfg, device="cuda", train=True)
+    init_parameters(g, gen)
+    batch = _zoo_batch(TRAIN_BATCH, 40, "cuda")
+    rows = {}
+    for name in ZOO_FAMILIES:
+        d = build_discriminator([name], 48000).cuda()
+        init_parameters(d, gen)
+        step = TrainStep(cfg, g, d, module_optimizer("adamw", g, 1e-4),
+                         module_optimizer("adamw", d, 1e-4))
+        first_grads, orig_step = [], step.opt_d.step
+
+        def opt_d_step(grads, _orig=orig_step):
+            if not first_grads:
+                first_grads.append([gr.detach().float().clone() for gr in grads])
+            return _orig(grads)
+
+        step.opt_d.step = opt_d_step
+        events, losses = [], []
+        torch.cuda.reset_peak_memory_stats()
+        sgen = torch.Generator().manual_seed(12)
+        for _ in range(ZOO_FAMILY_STEPS):
+            evs = {}
+
+            def mark(part, evs=evs):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                evs[part] = ev
+
+            step.mark = mark
+            m = step(batch, sgen)
+            events.append(evs)
+            losses.append({k: float(v) for k, v in m.items()})
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        for i, ls in enumerate(losses):
+            require(all(np.isfinite(v) for v in ls.values()), f"{name} step {i}: {ls}")
+        names = [n for n, _ in d.named_parameters()]
+        bad = [n for n, gr in zip(names, first_grads[0])
+               if not bool(torch.isfinite(gr).all()) or float(gr.abs().max()) == 0.0]
+        require(not bad, f"{name}: D gradients not finite or all zero after step 1: {bad[:6]}")
+        step_ms = [e["g_forward"].elapsed_time(e["end"]) for e in events[1:]]
+        wave = batch["wave"][:, :TRAIN_SEGMENT]
+        fake = torch.tanh(wave * 1.3)
+
+        def d_fwd_bwd():
+            r, f, _, _ = step.d_apply(wave, fake)
+            return torch.autograd.grad(L.discriminator_loss(r, f), step.d_params)
+
+        rows[name] = {"ms_per_warm_step": statistics.median(step_ms),
+                      "ms_per_warm_step_all": step_ms,
+                      "d_fwd_bwd_ms": gpu_time_ms(d_fwd_bwd, 3),
+                      "peak_gb": peak / 2 ** 30, "d_params": sum(p.numel() for p in d.parameters()),
+                      "losses_last": losses[-1]}
+        emit({"phase": "zoo_family", "gpu": smi, "family": name, **rows[name]})
+        del d, step, first_grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    del g
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _zoo_trainings(smi: str, files: dict, root: str, rng):
+    """``train`` through the CLI at full width with MRF HiFi-GAN at 40 kHz
+    (mpd + mrd, 2 epochs, then a resume to 3) and RefineGAN at 32 kHz (mpd
+    + mssbcqt, 2 epochs), each on 40 clips at its rate: per step finite
+    losses and the decoder's K1/K2 launches, every G and D group's gradient
+    after step 1, the resume, and the exported deployable .pth converting
+    10 s to finite audio of the right length."""
+    import torch
+
+    from rvc_tpu_torch.train.step import grad_group
+    from rvc_tpu_torch.utils.audio_io import write_wav
+
+    wav = os.path.join(root, "zoo_train_in.wav")
+    audio = _audio(10.0, np.random.default_rng(13))
+    write_wav(wav, audio, 16000)
+    audio = audio / max(np.abs(audio).max() / 0.95, 1.0)
+    launches, shapes, rows = {}, {}, {}
+    grad_uses = {}  # stage or chain shape -> {path: calls per step}
+    for tag, vocoder, sr, discs, epochs, resume_to in ZOO_TRAININGS:
+        name = f"zoo_{tag}"
+        exp = os.path.join(root, "logs", name)
+        os.makedirs(exp, exist_ok=True)
+        _write_train_dataset(exp, rng, sr)
+        argv = ["train", "--model_name", name, "--sample_rate", str(sr), "--vocoder",
+                vocoder, "--discriminators", discs, "--save_every_epoch", "1",
+                "--pretrained", "False", "--batch_size", str(TRAIN_BATCH),
+                "--save_only_latest", "True", "--use_benchmark", "False"]
+        path = f"zoo_train_{tag}"
+        _reset_counts()
+        t0 = time.perf_counter()
+        grad_shapes = []
+        with _TrainProbe() as first:
+            shapes[path] = record_path_shapes(
+                lambda: _cli(argv + ["--total_epoch", str(epochs)], root), grad_shapes)
+        wall = time.perf_counter() - t0
+        for k, n in collections.Counter(map(_shape_key, grad_shapes)).items():
+            grad_uses.setdefault(k, {})[path] = n / len(first.steps)
+        launches[path] = _counts()
+        spe = first.trainer.steps_per_epoch
+        g_names = [n for n, _ in first.trainer.model_g.named_parameters()]
+        nk = getattr(first.trainer.model_g.dec, "num_kernels", 1)
+        d_groups = {first.trainer.model_d.group_of(n)
+                    for n, _ in first.trainer.model_d.named_parameters()}
+        first.trainer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        steps = list(first.steps)
+        resumed = None
+        if resume_to:
+            with _TrainProbe() as second:
+                _cli(argv + ["--total_epoch", str(resume_to)], root)
+            steps += second.steps
+            resumed = second.resumed
+            require(resumed is not None and resumed["start_epoch"] == epochs + 1
+                    and resumed["step"] == epochs * spe,
+                    f"{tag} resume: {resumed and (resumed['start_epoch'], resumed['step'])}")
+            second.trainer = None
+            gc.collect()
+            torch.cuda.empty_cache()
+        for i, st in enumerate(steps):
+            m = {k: float(v) for k, v in st["metrics"].items()}
+            require(all(np.isfinite(v) for v in m.values()), f"{tag} step {i}: {m}")
+            require(_zoo_launch_ok(vocoder, st["launches"]),
+                    f"{tag} step {i}: K1/K2 launches {st['launches']}")
+        gsub = {k: float(v) for k, v in first.steps[0]["metrics"].items()
+                if k.startswith("gsub_")}
+        groups = sorted({f"gsub_g/{grp}" for n in g_names for grp in grad_group(n, nk)}
+                        | {f"gsub_d/{grp}" for grp in d_groups})
+        dead = [k for k in groups if not (np.isfinite(gsub.get(k, np.nan))
+                                          and gsub.get(k, 0.0) > 0)]
+        require(not dead, f"{tag}: no gradient after step 1 in {dead}")
+        last = resume_to or epochs
+        out = os.path.join(root, f"{name}_conv.wav")
+        with _Probe() as probe:
+            _cli(["infer", "--input_path", wav, "--output_path", out, "--pth_path",
+                  os.path.join(exp, f"{name}_{last}e.pth"), "--f0_method", "rmvpe",
+                  "--index_path", files["index"], "--index_rate", "0.75"], root)
+        data = _check_wav(out, _windowed_len(probe.pipe, audio), f"{tag} trained", sr)
+        parts = np.array([_step_parts_ms(st) for st in first.steps[2:]] or [[np.nan] * 4])
+        recs = [json.loads(line) for line in open(os.path.join(exp, "metrics.jsonl"))]
+        rows[tag] = {"vocoder": vocoder, "sample_rate": sr, "discriminators": discs,
+                     "steps_per_epoch": spe, "steps": len(steps), "first_call_wall_s": wall,
+                     "epoch_wall_s": [r["epoch/epoch_seconds"] for r in recs
+                                      if "epoch/epoch_seconds" in r],
+                     "ms_per_step_median": float(np.median(parts[:, 3])),
+                     "launches": launches[path], "launches_per_step": steps[-1]["launches"],
+                     "grad_groups_checked": len(groups),
+                     "resumed_at": resumed and resumed["start_epoch"],
+                     "convert_samples": int(data.shape[0]),
+                     "peak_gb": max(st["peak"] for st in steps) / 2 ** 30}
+        emit({"phase": "zoo_train", "gpu": smi, "model": tag, **rows[tag]})
+    return launches, shapes, grad_uses, rows
+
+
+def phase_zoo(smi: str, files: dict, root: str):
+    """The rest of the model zoo at full width, bf16, random weights from
+    numpy seed 0 (scale 0.02), through ``rvc_tpu_torch.cli.main`` on the
+    files of phase ``files``: (a) four 10 s conversions, NSF HiFi-GAN at 32
+    and 40 kHz, MRF HiFi-GAN at 40 kHz, RefineGAN at 32 kHz; (b) small fp32
+    MRF HiFi-GAN and RefineGAN models on the card against the CPU; (c) each
+    discriminator family in training steps; (d) two ``train`` runs. Returns
+    (launches and shapes by path, stage or chain shape -> {training path:
+    calls per step})."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    launches, shapes, conv = _zoo_conversions(smi, files, root, rng)
+    small = _zoo_small()
+    emit({"phase": "zoo_small", "gpu": smi, "tol": 1e-3, **small})
+    switches = _cuda_switches()
+    _cuda_switches([False, False, False, False])
+    try:
+        families = _zoo_families(smi)
+        t_launches, t_shapes, grad_uses, trains = _zoo_trainings(smi, files, root, rng)
+    finally:
+        _cuda_switches(switches)
+    launches.update(t_launches)
+    shapes.update(t_shapes)
+    emit({"phase": "zoo", "gpu": smi, "seconds": time.perf_counter() - t0,
+          "conversions": {k: {f: v[f] for f in ("wall_s", "decoder_ms", "samples")}
+                          for k, v in conv.items()},
+          "families": {k: {f: v[f] for f in ("ms_per_warm_step", "d_fwd_bwd_ms", "peak_gb")}
+                       for k, v in families.items()},
+          "trainings": {k: {f: v[f] for f in ("ms_per_step_median", "epoch_wall_s", "steps")}
+                        for k, v in trains.items()}})
+    return launches, shapes, grad_uses
 
 
 # -- the dataset path: preprocess, extract, train, index, every f0 method ------
@@ -2065,7 +2492,7 @@ def main(argv) -> int:
         return 2
     phases = argv[1].split(",") if len(argv) > 1 else [
         "env", "build", "small", "pipeline", "stream", "files", "windowed", "batch",
-        "nof0", "train", "prep", "kernels", "stages"]
+        "nof0", "train", "prep", "zoo", "kernels", "stages"]
     sys.path.insert(0, REPO)
     import rvc_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -2077,7 +2504,7 @@ def main(argv) -> int:
     counts, rec, launches, path_shapes = {}, {}, {}, {}
     if "unit" in phases:
         phase_kernels({"unit": UNIT_SHAPES})
-    user_paths = [p for p in ("windowed", "batch", "nof0", "prep") if p in phases]
+    user_paths = [p for p in ("windowed", "batch", "nof0", "prep", "zoo") if p in phases]
     root = tempfile.mkdtemp(prefix="rvc_chip_smoke_")
     try:
         if "pipeline" in phases:
@@ -2087,23 +2514,29 @@ def main(argv) -> int:
                 phase_stream(pipe, audio, index, smi)
         if "files" in phases or user_paths:
             files = phase_files(smi, root)
-            for name in (p for p in user_paths if p != "prep"):
+            for name in (p for p in user_paths if p not in ("prep", "zoo")):
                 phase = {"windowed": phase_windowed, "batch": phase_batch,
                          "nof0": phase_nof0}[name]
                 launches[name], path_shapes[name] = phase(smi, files, root)
-        grad_uses = None
+        grad_uses = {}  # stage or chain shape -> {training path: calls per step}
         if "train" in phases:
             phase_small_train(smi)
             switches = _cuda_switches()
             launches["train"], path_shapes["train"], grad_shapes, n_steps = phase_train(
                 smi, root)
             _cuda_switches(switches)  # later phases time cuDNN as earlier PRs did
-            grad_uses = {k: n / n_steps for k, n in
-                         collections.Counter(map(_shape_key, grad_shapes)).items()}
+            for k, n in collections.Counter(map(_shape_key, grad_shapes)).items():
+                grad_uses.setdefault(k, {})["train"] = n / n_steps
         if "prep" in phases:
             launches["prep"], path_shapes["prep"] = phase_prep(smi, root, files)
+        if "zoo" in phases:
+            z_launches, z_shapes, z_uses = phase_zoo(smi, files, root)
+            launches.update(z_launches)
+            path_shapes.update(z_shapes)
+            for k, runs in z_uses.items():
+                grad_uses.setdefault(k, {}).update(runs)
         if "kernels" in phases and path_shapes:  # at the shapes the paths gave
-            rec = phase_kernels(path_shapes, grad_uses).get("pipeline", {})
+            rec = phase_kernels(path_shapes, grad_uses or None).get("pipeline", {})
         if "pipeline" in phases and "stages" in phases:
             phase_stages(pipe, audio, index, smi)
         if "pipeline" in phases and "trace" in phases:

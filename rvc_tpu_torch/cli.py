@@ -11,7 +11,8 @@
     python -m rvc_tpu_torch.cli extract --model_name m --sample_rate 48000 \\
         [--f0_method rmvpe --batch_size 8]
     python -m rvc_tpu_torch.cli train --model_name m --sample_rate 48000 \\
-        [--total_epoch 200 --batch_size 8 --save_every_epoch 10 ...]
+        [--total_epoch 200 --batch_size 8 --save_every_epoch 10 \\
+         --vocoder "MRF HiFi-GAN" --discriminators mpd,mrd ...]
     python -m rvc_tpu_torch.cli index --model_name m [--index_algorithm KMeans]
 
 The dataset commands run from the directory that holds ``logs/`` and write
@@ -23,9 +24,10 @@ flag, so that a command line written for it parses unchanged; ``--device``
 (default ``cuda``) is added. Options the port does not serve yet raise
 ``NotImplementedError`` naming their ROADMAP item when set (for inference:
 formant shifting, the post-FX chain, ``--clean_audio``, formats other than
-WAV; for training: discriminators other than ``mpd``, ``--use_orbax``,
-several ``--gpu`` indices, vocoders other than HiFi-GAN). ``main(argv)``
-returns the exit code.
+WAV; for training: ``--use_orbax``, several ``--gpu`` indices). Every
+vocoder (``--vocoder "HiFi-GAN" | "MRF HiFi-GAN" | RefineGAN``) trains and
+converts, at 32, 40 and 48 kHz, and ``--discriminators`` takes any comma
+list of the JAX registry's names. ``main(argv)`` returns the exit code.
 """
 
 from __future__ import annotations
@@ -179,7 +181,8 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--use_orbax", type=_bool, default=False,
                    help="the JAX package's sharded checkpoints (not in the port)")
     p.add_argument("--discriminators", type=str, default="mpd",
-                   help="comma list; the port trains with mpd")
+                   help="comma list of mpd, mpd_v1, mpd_v2, mrd, msstft, "
+                        "mssbcqt, msd, fregan_mpd, mmsd (several combine)")
     p.add_argument("--index_algorithm", type=str, default="Auto")
     p.add_argument("--cleanup", type=_bool, default=False,
                    help="remove previous-attempt checkpoints/index/metrics "

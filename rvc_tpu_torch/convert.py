@@ -78,13 +78,95 @@ def _wavenet(sd, prefix: str, p: Tree) -> None:
             weight_norm=True)
 
 
+def _conv_transpose1d(sd, prefix: str, p: Tree) -> None:
+    sd[f"{prefix}.weight_g"] = _t(np.asarray(p["g"]).reshape(-1, 1, 1))
+    sd[f"{prefix}.weight_v"] = _t(
+        np.transpose(np.asarray(p["kernel"]), (1, 2, 0)))  # [in, out, K]
+    sd[f"{prefix}.bias"] = _t(p["bias"])
+
+
+def _chain(sd, prefix: str, p: Tree, conv1: str, conv2: str) -> None:
+    """A residual chain's weight-normalized convs: flax ``conv1_{c}`` /
+    ``conv2_{c}`` -> ``{prefix}.{conv1}.{c}`` / ``{conv2}.{c}``."""
+    c = 0
+    while f"conv1_{c}" in p:
+        _conv1d(sd, f"{prefix}.{conv1}.{c}", p[f"conv1_{c}"], weight_norm=True)
+        _conv1d(sd, f"{prefix}.{conv2}.{c}", p[f"conv2_{c}"], weight_norm=True)
+        c += 1
+
+
+def _hifigan_decoder(sd, dec: Tree) -> None:
+    """NSF HiFi-GAN, or the plain HiFi-GAN of a model without pitch (no
+    ``m_source``, no ``noise_convs``)."""
+    _conv1d(sd, "dec.conv_pre", dec["conv_pre"])
+    _conv1d(sd, "dec.conv_post", dec["conv_post"])
+    if "m_source" in dec:
+        _dense(sd, "dec.m_source.l_linear", dec["m_source"]["l_linear"])
+    if "cond" in dec:
+        _conv1d(sd, "dec.cond", dec["cond"])
+    n_ups = sum(1 for k in dec if k.startswith("ups_"))
+    num_kernels = sum(1 for k in dec if k.startswith("resblock_0_"))
+    for i in range(n_ups):
+        _conv_transpose1d(sd, f"dec.ups.{i}", dec[f"ups_{i}"])
+        if f"noise_convs_{i}" in dec:
+            _conv1d(sd, f"dec.noise_convs.{i}", dec[f"noise_convs_{i}"])
+        for j in range(num_kernels):
+            _chain(sd, f"dec.resblocks.{i * num_kernels + j}",
+                   dec[f"resblock_{i}_{j}"], "convs1", "convs2")
+
+
+def _mrf_decoder(sd, dec: Tree) -> None:
+    """MRF HiFi-GAN in the reference's names (``upsamples``, ``mrfs``)."""
+    _conv1d(sd, "dec.conv_pre", dec["conv_pre"], weight_norm=True)
+    _conv1d(sd, "dec.conv_post", dec["conv_post"], weight_norm=True)
+    _dense(sd, "dec.m_source.l_linear", dec["m_source"]["l_linear"])
+    if "cond" in dec:
+        _conv1d(sd, "dec.cond", dec["cond"])
+    n_ups = sum(1 for k in dec if k.startswith("ups_"))
+    num_kernels = sum(1 for k in dec if k.startswith("mrf_0_"))
+    for i in range(n_ups):
+        _conv_transpose1d(sd, f"dec.upsamples.{i}", dec[f"ups_{i}"])
+        _conv1d(sd, f"dec.noise_convs.{i}", dec[f"noise_convs_{i}"])
+        for j in range(num_kernels):
+            block, k = dec[f"mrf_{i}_{j}"], 0
+            while f"layer_{k}" in block:
+                for name in ("conv1", "conv2"):
+                    _conv1d(sd, f"dec.mrfs.{i}.{j}.layers.{k}.{name}",
+                            block[f"layer_{k}"][name], weight_norm=True)
+                k += 1
+
+
+def _refinegan_decoder(sd, dec: Tree) -> None:
+    """RefineGAN in the reference's names; the ``input_conv`` of each
+    stage is not weight-normalized, ``conv_post`` has no bias."""
+    for name in ("pre_conv", "mel_conv", "conv_post"):
+        _conv1d(sd, f"dec.{name}", dec[name], weight_norm=True)
+    sd["dec.m_source.merge.0.weight"] = _t(
+        np.asarray(dec["m_source"]["merge"]["kernel"]).T)
+    _conv1d(sd, "dec.cond", dec["cond"])
+    i = 0
+    while f"downsample_{i}" in dec:
+        _conv1d(sd, f"dec.downsample_blocks.{i}", dec[f"downsample_{i}"],
+                weight_norm=True)
+        blk, pre = dec[f"upsample_conv_{i}"], f"dec.upsample_conv_blocks.{i}"
+        _conv1d(sd, f"{pre}.input_conv", blk["input_conv"])
+        b = 0
+        while f"resblock_{b}" in blk:
+            sd[f"{pre}.blocks.{b}.0.weight"] = _t(blk[f"adain1_{b}"]["weight"])
+            _chain(sd, f"{pre}.blocks.{b}.1", blk[f"resblock_{b}"], "convs1", "convs2")
+            sd[f"{pre}.blocks.{b}.2.weight"] = _t(blk[f"adain2_{b}"]["weight"])
+            b += 1
+        i += 1
+
+
 def synthesizer_state_dict(params: Tree,
                            posterior: bool = False) -> Dict[str, torch.Tensor]:
-    """flax ``Synthesizer`` params (NSF decoder, or the plain HiFi-GAN
-    decoder of a model without pitch: no ``emb_pitch``, ``m_source`` or
-    ``noise_convs``) -> the port's ``Synthesizer`` state_dict. The
-    posterior encoder (``enc_q``) comes across with ``posterior``, for a
-    model built to train."""
+    """flax ``Synthesizer`` params -> the port's ``Synthesizer`` state_dict,
+    the decoder recognised by its tree: NSF HiFi-GAN (or the plain HiFi-GAN
+    of a model without pitch: no ``emb_pitch``, ``m_source`` or
+    ``noise_convs``), MRF HiFi-GAN (``mrf_0_0``) or RefineGAN
+    (``mel_conv``). The posterior encoder (``enc_q``) comes across with
+    ``posterior``, for a model built to train."""
     sd: Dict[str, torch.Tensor] = {}
     if posterior:
         _conv1d(sd, "enc_q.pre", params["enc_q"]["pre"])
@@ -120,32 +202,12 @@ def synthesizer_state_dict(params: Tree,
         _conv1d(sd, f"{f}.post", c["post"])
 
     dec = params["dec"]
-    _conv1d(sd, "dec.conv_pre", dec["conv_pre"])
-    _conv1d(sd, "dec.conv_post", dec["conv_post"])
-    if "m_source" in dec:
-        _dense(sd, "dec.m_source.l_linear", dec["m_source"]["l_linear"])
-    if "cond" in dec:
-        _conv1d(sd, "dec.cond", dec["cond"])
-    n_ups = sum(1 for k in dec if k.startswith("ups_"))
-    num_kernels = sum(1 for k in dec if k.startswith("resblock_0_"))
-    for i in range(n_ups):
-        up = dec[f"ups_{i}"]
-        sd[f"dec.ups.{i}.weight_g"] = _t(np.asarray(up["g"]).reshape(-1, 1, 1))
-        sd[f"dec.ups.{i}.weight_v"] = _t(
-            np.transpose(np.asarray(up["kernel"]), (1, 2, 0)))  # [in, out, K]
-        sd[f"dec.ups.{i}.bias"] = _t(up["bias"])
-        if f"noise_convs_{i}" in dec:
-            _conv1d(sd, f"dec.noise_convs.{i}", dec[f"noise_convs_{i}"])
-        for j in range(num_kernels):
-            rb = dec[f"resblock_{i}_{j}"]
-            flat = i * num_kernels + j
-            c = 0
-            while f"conv1_{c}" in rb:
-                _conv1d(sd, f"dec.resblocks.{flat}.convs1.{c}", rb[f"conv1_{c}"],
-                        weight_norm=True)
-                _conv1d(sd, f"dec.resblocks.{flat}.convs2.{c}", rb[f"conv2_{c}"],
-                        weight_norm=True)
-                c += 1
+    if "mrf_0_0" in dec:
+        _mrf_decoder(sd, dec)
+    elif "mel_conv" in dec:
+        _refinegan_decoder(sd, dec)
+    else:
+        _hifigan_decoder(sd, dec)
     sd["emb_g.weight"] = _t(params["emb_g"]["embedding"])
     return sd
 
@@ -159,7 +221,8 @@ def _conv2d_wn(sd, prefix: str, p: Tree) -> None:
         sd[f"{prefix}.weight_v"] = _t(w)
     else:
         sd[f"{prefix}.weight"] = _t(w)
-    sd[f"{prefix}.bias"] = _t(p["bias"])
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = _t(p["bias"])
 
 
 def mpd_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
@@ -180,6 +243,32 @@ def mpd_state_dict(params: Tree) -> Dict[str, torch.Tensor]:
         for i in range(5):
             _conv2d_wn(sd, f"discriminators.{j}.convs.{i}", d[f"conv_{i}"])
         _conv2d_wn(sd, f"discriminators.{j}.conv_post", d["conv_post"])
+    return sd
+
+
+def discriminator_state_dict(params: Tree, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Any flax discriminator of the JAX package (the MPD, a zoo member of
+    ``custom_discriminators``, a ``CombinedDiscriminator``) -> the port's
+    state_dict. An MPD's tree (``disc_s`` and ``disc_p*``) takes the
+    reference layout of ``mpd_state_dict``; a combination's members
+    (``discriminators_{i}``) go under ``discriminators.{i}``; every other
+    name is the port's own (a conv's ``kernel`` [K, in, out] or HWIO
+    becomes ``weight`` [out, in, ...], or ``weight_v`` beside ``weight_g``
+    where the tree has ``g``)."""
+    if "disc_s" in params:
+        return {prefix + k: v for k, v in mpd_state_dict(params).items()}
+    sd: Dict[str, torch.Tensor] = {}
+    for name, p in params.items():
+        if name.startswith("discriminators_"):
+            sd.update(discriminator_state_dict(
+                p, f"{prefix}discriminators.{name[len('discriminators_'):]}."))
+        elif "kernel" in p:
+            if np.asarray(p["kernel"]).ndim == 4:
+                _conv2d_wn(sd, prefix + name, p)
+            else:
+                _conv1d(sd, prefix + name, p, weight_norm="g" in p)
+        else:
+            sd.update(discriminator_state_dict(p, f"{prefix}{name}."))
     return sd
 
 

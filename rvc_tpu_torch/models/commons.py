@@ -198,45 +198,65 @@ class WaveNet(nn.Module):
         return output * x_mask
 
 
-class ResBlock(nn.Module):
-    """HiFi-GAN multi-dilation residual block (reference residuals.py).
+class ChainBlock(nn.Module):
+    """One residual chain over a dilation schedule: per dilation d,
+    leaky ReLU, a weight-normalized conv of dilation d, leaky ReLU, a conv
+    of dilation 1, and the residual. A subclass holds the convs under its
+    reference's names and lists them in ``conv_pairs``.
 
-    Holds the chain's weight-normalized convs. The decoder does not call it
-    per chain: ``generators.nsf._resblock_stage`` gathers every chain's
-    folded weights and runs the stage tail through ``ops.resblock``.
+    Decoders do not call a chain of a stage one by one: their stage tails
+    (``generators.nsf._resblock_stage``) gather every chain's folded weights
+    and run through ``ops.resblock``. The folded weights and the kernel's
+    packed weights are cached on the module and rebuilt when a parameter
+    changes, so inference folds and packs once."""
 
-    The folded weights and the kernel's packed weights are cached on the
-    module and rebuilt when a parameter changes, so inference folds and
-    packs once."""
-
-    def __init__(self, channels: int, kernel_size: int = 3,
-                 dilations: Sequence[int] = (1, 3, 5)):
+    def __init__(self, kernel_size: int, dilations: Sequence[int], slope: float):
         super().__init__()
         self.kernel_size = kernel_size
         self.dilations = tuple(dilations)
-        self.convs1 = nn.ModuleList(
-            Conv1d(channels, channels, kernel_size, dilation=d, weight_norm=True)
-            for d in self.dilations)
-        self.convs2 = nn.ModuleList(
-            Conv1d(channels, channels, kernel_size, dilation=1, weight_norm=True)
-            for _ in self.dilations)
+        self.slope = slope
         self._folded = WeightCache()   # weight norm applied
         self.packed = WeightCache()    # the chain kernel's packed weights
+
+    def conv_pairs(self) -> Sequence[Tuple[Conv1d, Conv1d]]:
+        raise NotImplementedError
 
     def chain_weights(self):
         """(w1s, b1s, w2s, b2s): folded [C, C, K] weights and biases per
         dilation, as ``ops.resblock`` takes them. With gradients off the
         folded weights are kept until a parameter changes."""
         def fold():
-            return ([c.effective_weight() for c in self.convs1],
-                    [c.bias for c in self.convs1],
-                    [c.effective_weight() for c in self.convs2],
-                    [c.bias for c in self.convs2])
+            pairs = self.conv_pairs()
+            return ([c1.effective_weight() for c1, _ in pairs],
+                    [c1.bias for c1, _ in pairs],
+                    [c2.effective_weight() for _, c2 in pairs],
+                    [c2.bias for _, c2 in pairs])
 
         if torch.is_grad_enabled():
             return fold()
         return self._folded.get(list(self.parameters()), "folded", fold)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """One chain through K2 (``resblock_chain``) at the block's slope."""
         return resblock_chain(x, *self.chain_weights(), self.dilations,
-                              slope=LRELU_SLOPE, cache=self.packed)
+                              slope=self.slope, cache=self.packed)
+
+
+class ResBlock(ChainBlock):
+    """HiFi-GAN multi-dilation residual block (reference residuals.py):
+    ``convs1.{i}`` of dilation d_i and ``convs2.{i}`` of dilation 1.
+    ``slope`` is the leaky ReLU's (RefineGAN's chains take 0.2)."""
+
+    def __init__(self, channels: int, kernel_size: int = 3,
+                 dilations: Sequence[int] = (1, 3, 5),
+                 slope: float = LRELU_SLOPE):
+        super().__init__(kernel_size, dilations, slope)
+        self.convs1 = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size, dilation=d, weight_norm=True)
+            for d in self.dilations)
+        self.convs2 = nn.ModuleList(
+            Conv1d(channels, channels, kernel_size, dilation=1, weight_norm=True)
+            for _ in self.dilations)
+
+    def conv_pairs(self):
+        return list(zip(self.convs1, self.convs2))

@@ -61,16 +61,20 @@ class NormConv1d(Conv1d):
 
 
 class NormConv2d(nn.Module):
-    """2D conv on [B, C, H, W] with a (k, 1) kernel over time, weight-
-    normalized per output channel (``WNConv2d``) or spectrally normalized."""
+    """2D conv on [B, C, H, W] (H time), weight-normalized per output
+    channel (``WNConv2d``), spectrally normalized, or ``plain`` (flax's
+    ``nn.Conv``: no norm, computed in the promoted dtype of its input and
+    weights, as flax promotes)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: Tuple[int, int], stride: Tuple[int, int],
-                 padding: Tuple[int, int], spectral: bool = False):
+                 kernel_size: Tuple[int, int], stride: Tuple[int, int] = (1, 1),
+                 padding: Tuple[int, int] = (0, 0), spectral: bool = False,
+                 dilation: Tuple[int, int] = (1, 1), plain: bool = False):
         super().__init__()
-        self.stride, self.padding, self.spectral = stride, padding, spectral
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        self.spectral, self.plain = spectral, plain
         shape = (out_channels, in_channels, *kernel_size)
-        if spectral:
+        if spectral or plain:
             self.weight = nn.Parameter(torch.zeros(shape))
         else:
             self.weight_g = nn.Parameter(torch.ones(out_channels, 1, 1, 1))
@@ -78,9 +82,14 @@ class NormConv2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(out_channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.plain:
+            dt = torch.promote_types(x.dtype, self.weight.dtype)
+            return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
+                            self.stride, self.padding, self.dilation)
         w = (spectral_normalize(self.weight) if self.spectral
              else weight_norm(self.weight_v, self.weight_g, dim=0))
-        return F.conv2d(x.to(w.dtype), w, self.bias, self.stride, self.padding)
+        return F.conv2d(x.to(w.dtype), w, self.bias, self.stride, self.padding,
+                        self.dilation)
 
 
 class DiscriminatorS(nn.Module):
@@ -146,12 +155,21 @@ def run_discriminators(discs: Sequence[nn.Module], y: torch.Tensor,
                        y_hat: torch.Tensor):
     """Each sub-discriminator on real and fake as one doubled batch, split
     into (real logits, fake logits, real fmaps, fake fmaps) per
-    discriminator. y, y_hat [B, T, 1]."""
-    b = y.shape[0]
+    discriminator. y, y_hat [B, T, 1]; each sub-discriminator takes
+    [2B, 1, T]."""
     xy = torch.cat([y, y_hat], dim=0).transpose(1, 2)
+    return run_discriminators_doubled(discs, [xy] * len(discs), y.shape[0])
+
+
+def run_discriminators_doubled(discs: Sequence[nn.Module],
+                               inputs: Sequence[torch.Tensor], b: int):
+    """Each sub-discriminator on its own doubled [2B, ...] input (real rows
+    first, then fake), split into (real logits, fake logits, real fmaps,
+    fake fmaps): the one place of the real-first convention, used directly
+    where the inputs differ (the DWT scales of ``MultiScaleDiscriminator``)."""
     y_d_rs, y_d_gs, fmap_rs, fmap_gs = [], [], [], []
-    for d in discs:
-        out, fmap = d(xy)
+    for d, inp in zip(discs, inputs):
+        out, fmap = d(inp)
         y_d_rs.append(out[:b])
         y_d_gs.append(out[b:])
         fmap_rs.append([f[:b] for f in fmap])
@@ -169,9 +187,11 @@ class MultiPeriodDiscriminator(nn.Module):
             + [DiscriminatorP(p, use_spectral_norm=use_spectral_norm)
                for p in self.periods])
 
-    def group_names(self) -> List[str]:
-        """The JAX package's name of each sub-discriminator, in order."""
-        return ["disc_s"] + [f"disc_p{p}" for p in self.periods]
+    def group_of(self, name: str) -> str:
+        """The JAX tree's name of a parameter's sub-discriminator (its
+        gradient-norm group): ``disc_s`` or ``disc_p<period>``."""
+        i = int(name.split(".")[1])
+        return "disc_s" if i == 0 else f"disc_p{self.periods[i - 1]}"
 
     def forward(self, y: torch.Tensor, y_hat: torch.Tensor):
         """y, y_hat [B, T, 1] -> (real logits, fake logits, real fmaps,

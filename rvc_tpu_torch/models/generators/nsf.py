@@ -19,23 +19,24 @@ import torch
 from torch import nn
 
 from ...ops.resblock import WeightCache, mrf_stage, resblock_chain
-from ..commons import (LRELU_SLOPE, Conv1d, ConvTranspose1d, ResBlock,
+from ..commons import (ChainBlock, Conv1d, ConvTranspose1d, ResBlock,
                        leaky_relu, source_downsample_geometry)
 from .sine import SineGenerator
 
 MRF_MAX_CHANNELS = 128
 
 
-def _resblock_stage(x: torch.Tensor, blocks: Sequence[ResBlock],
+def _resblock_stage(x: torch.Tensor, blocks: Sequence[ChainBlock],
                     cache: Optional[WeightCache] = None) -> torch.Tensor:
-    """One decoder stage tail: the mean over the parallel ResBlock chains.
+    """One decoder stage tail: the mean over the parallel residual chains
+    (``ResBlock``s, or the MRF decoder's ``MRFBlock``s: the same function).
     ``cache`` keeps the stage's packed weights for ``mrf_stage``."""
-    dil0 = blocks[0].dilations
-    same_dil = all(blk.dilations == dil0 for blk in blocks)
-    if x.shape[1] <= MRF_MAX_CHANNELS and same_dil:
+    dil0, slope = blocks[0].dilations, blocks[0].slope
+    same = all(blk.dilations == dil0 and blk.slope == slope for blk in blocks)
+    if x.shape[1] <= MRF_MAX_CHANNELS and same:
         return mrf_stage(x.contiguous(), [blk.chain_weights() for blk in blocks],
                          [blk.kernel_size for blk in blocks], dil0,
-                         slope=LRELU_SLOPE, cache=cache)
+                         slope=slope, cache=cache)
     xs = None
     for blk in blocks:
         out = blk(x.contiguous())

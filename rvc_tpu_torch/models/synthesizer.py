@@ -1,6 +1,8 @@
 """The VITS-style voice-conversion synthesizer (port of
-``rvc_tpu/models/synthesizer.py``) with the HiFi-GAN decoders: NSF for
-pitch-guided models, plain HiFi-GAN for models without pitch.
+``rvc_tpu/models/synthesizer.py``) with every decoder of the JAX package:
+for pitch-guided models NSF HiFi-GAN (``vocoder="HiFi-GAN"``), MRF
+HiFi-GAN or RefineGAN; for models without pitch the plain HiFi-GAN (the
+other two need pitch and raise ``ValueError``, as JAX's do).
 
   - ``infer``: prior sample -> inverse flow -> decode;
   - ``forward`` (training, built with ``posterior=True``): posterior z from
@@ -22,7 +24,11 @@ from .commons import rand_slice_segments, slice_segments
 from .encoders import PosteriorEncoder, TextEncoder
 from .flows import ResidualCouplingBlock
 from .generators.hifigan import HiFiGANGenerator
+from .generators.mrf import HiFiGANMRFGenerator
 from .generators.nsf import HiFiGANNSFGenerator
+from .generators.refinegan import RefineGANGenerator
+
+VOCODERS = ("HiFi-GAN", "MRF HiFi-GAN", "RefineGAN")
 
 
 class Synthesizer(nn.Module):
@@ -40,7 +46,7 @@ class Synthesizer(nn.Module):
                  flow_layers: int = 3, zero_noise: bool = False,
                  use_f0: bool = True, posterior: bool = False,
                  spec_channels: int = 1025, segment_size: int = 36,
-                 posterior_layers: int = 16):
+                 posterior_layers: int = 16, vocoder: str = "HiFi-GAN"):
         super().__init__()
         self.zero_noise, self.use_f0 = zero_noise, use_f0
         self.segment_size = segment_size  # latent frames of a training slice
@@ -57,11 +63,29 @@ class Synthesizer(nn.Module):
                                           1, flow_layers,
                                           gin_channels=gin_channels)
         self.emb_g = nn.Embedding(spk_embed_dim, gin_channels)
-        if use_f0:
+        if vocoder not in VOCODERS:
+            raise ValueError(f"unknown vocoder {vocoder!r}; one of {VOCODERS}")
+        self.vocoder = vocoder
+        if use_f0 and vocoder == "MRF HiFi-GAN":
+            self.dec = HiFiGANMRFGenerator(
+                inter_channels, upsample_initial_channel, upsample_rates,
+                upsample_kernel_sizes, resblock_kernel_sizes,
+                resblock_dilation_sizes, gin_channels, sr, harmonic_num=8,
+                zero_noise=zero_noise)
+        elif use_f0 and vocoder == "RefineGAN":
+            # JAX builds it from the rate, the upsample rates and the
+            # latent's width only (its own 512 channels)
+            self.dec = RefineGANGenerator(
+                sample_rate=sr, upsample_rates=upsample_rates,
+                num_mels=inter_channels, gin_channels=gin_channels,
+                zero_noise=zero_noise)
+        elif use_f0:
             self.dec = HiFiGANNSFGenerator(
                 inter_channels, resblock_kernel_sizes, resblock_dilation_sizes,
                 upsample_rates, upsample_initial_channel, upsample_kernel_sizes,
                 gin_channels=gin_channels, sr=sr, zero_noise=zero_noise)
+        elif vocoder != "HiFi-GAN":
+            raise ValueError(f"{vocoder} requires pitch guidance (use_f0)")
         else:
             self.dec = HiFiGANGenerator(
                 inter_channels, resblock_kernel_sizes, resblock_dilation_sizes,
@@ -106,11 +130,16 @@ class Synthesizer(nn.Module):
     def infer(self, phone: torch.Tensor, phone_lengths: torch.Tensor,
               pitch: Optional[torch.Tensor], nsff0: Optional[torch.Tensor],
               sid: torch.Tensor, temperature: float = 0.66666,
-              generator: Optional[torch.Generator] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              generator: Optional[torch.Generator] = None,
+              rate: Optional[float] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """phone [B, T, D], lengths [B], pitch [B, T] int, nsff0 [B, T] f0 Hz
         (both ignored, and may be None, without pitch guidance), sid [B] ->
-        (audio [B, T_audio, 1], x_mask [B, T, 1])."""
+        (audio [B, T_audio, 1], x_mask [B, T, 1]).
+
+        ``rate``: the streaming head-trim (reference synthesizers.py:250-253):
+        only the trailing ``rate`` share of the latent frames is decoded
+        (the first int(T * (1 - rate)) are dropped after the prior
+        sample)."""
         g = self.emb_g(sid)[:, :, None]                      # [B, gin, 1]
         m_p, logs_p, x_mask = self.enc_p(phone, pitch if self.use_f0 else None,
                                          phone_lengths)
@@ -120,6 +149,11 @@ class Synthesizer(nn.Module):
             eps = torch.randn(m_p.shape, generator=generator,
                               device=m_p.device).to(m_p.dtype)
             z_p = (m_p + torch.exp(logs_p) * eps * temperature) * x_mask
+        if rate is not None:
+            head = int(z_p.shape[2] * (1.0 - float(rate)))
+            z_p, x_mask = z_p[:, :, head:], x_mask[:, :, head:]
+            if self.use_f0 and nsff0 is not None:
+                nsff0 = nsff0[:, head:]
         z = self.flow.reverse(z_p, x_mask, g=g)
         if self.use_f0:
             o = self.dec(z * x_mask, nsff0, g=g, generator=generator)
@@ -146,14 +180,10 @@ class Synthesizer(nn.Module):
             upsample_kernel_sizes=m.upsample_kernel_sizes,
             spk_embed_dim=m.spk_embed_dim, gin_channels=m.gin_channels,
             sr=cfg.data.sample_rate, text_enc_hidden_dim=m.text_enc_hidden_dim,
-            use_f0=m.use_f0)
+            use_f0=m.use_f0, vocoder=m.vocoder)
         if train:
             kw.update(posterior=True, spec_channels=cfg.data.spec_channels,
                       segment_size=cfg.train.segment_size // cfg.data.hop_length)
         kw.update(overrides)
-        if m.vocoder != "HiFi-GAN":
-            raise NotImplementedError(
-                f"the {m.vocoder!r} vocoder is not ported yet (ROADMAP A.9); "
-                "the port covers the HiFi-GAN decoders, with and without pitch")
         model = Synthesizer(**kw).to(dev)
         return model.train() if train else model.eval()

@@ -57,6 +57,24 @@ def feature_loss(fmap_r: Fmaps, fmap_g: Fmaps) -> torch.Tensor:
     return loss
 
 
+def feature_loss_masked(fmap_r: Fmaps, fmap_g: Fmaps,
+                        silence_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Silence-aware feature matching (reference losses.py:17-47): each
+    layer's L1 averaged per sample, the layers averaged, then weighted by a
+    [B] voiced mask and normalized by its sum (the plain mean without
+    one)."""
+    per_layer = []
+    for dr, dg in zip(fmap_r, fmap_g):
+        for rl, gl in zip(dr, dg):
+            diff = torch.abs(rl.float() - gl.float())
+            per_layer.append(diff.reshape(diff.shape[0], -1).mean(dim=1))
+    total = torch.stack(per_layer).mean(dim=0)                      # [B]
+    if silence_mask is not None:
+        mask = silence_mask.float()
+        return (total * mask).sum() / (mask.sum() + 1e-6)
+    return total.mean()
+
+
 def kl_loss(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor,
             logs_p: torch.Tensor, z_mask: torch.Tensor) -> torch.Tensor:
     """KL between the posterior sample and the prior; [B, T, C] tensors and

@@ -61,15 +61,25 @@ def _grads(loss, params: List[torch.Tensor]) -> List[torch.Tensor]:
     return [torch.zeros_like(p) if g is None else g for g, p in zip(got, params)]
 
 
+# the decoders' per-stage parts: a name's index after the part is the
+# stage (HiFi-GAN's resblocks count num_kernels chains a stage)
+_STAGE_PARTS = ("resblocks", "mrfs", "upsample_conv_blocks")
+
+
 def grad_group(name: str, num_kernels: int) -> List[str]:
     """The gradient-norm groups of a generator parameter: its top-level
-    module (the JAX step's ``gsub_g`` keys), and for the decoder also its
-    part (``dec.ups``, ``dec.resblocks.stage<i>``, ...)."""
+    module (the JAX step's ``gsub_g`` keys: ``enc_p``, ``enc_q``, ``flow``,
+    ``emb_g``, ``dec``), and for the decoder also its part under the
+    reference's names: ``dec.<part>`` (``dec.ups``, ``dec.upsamples``,
+    ``dec.noise_convs``, ``dec.downsample_blocks``, ``dec.m_source``, ...)
+    or, for the stage tails, ``dec.<part>.stage<i>`` (``dec.resblocks``,
+    MRF HiFi-GAN's ``dec.mrfs``, RefineGAN's ``dec.upsample_conv_blocks``)."""
     parts = name.split(".")
     groups = [parts[0]]
     if parts[0] == "dec":
-        if parts[1] == "resblocks":
-            groups.append(f"dec.resblocks.stage{int(parts[2]) // num_kernels}")
+        if parts[1] in _STAGE_PARTS:
+            stage = int(parts[2]) // (num_kernels if parts[1] == "resblocks" else 1)
+            groups.append(f"dec.{parts[1]}.stage{stage}")
         else:
             groups.append(f"dec.{parts[1]}")
     return groups
@@ -241,8 +251,7 @@ class TrainStep:
     def _group_norms(self, prefix: str, grads, names) -> Dict[str, torch.Tensor]:
         groups: Dict[str, List[torch.Tensor]] = {}
         if prefix == "gsub_d":
-            labels = self.model_d.group_names()
-            keys = [[labels[int(n.split(".")[1])]] for n in names]
+            keys = [[self.model_d.group_of(n)] for n in names]
         else:
             nk = getattr(getattr(self.model_g, "dec", None), "num_kernels", 1)
             keys = [grad_group(n, nk) for n in names]

@@ -135,16 +135,22 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded initial weights, drawn on the host (so a seed gives the same
     weights on the card and on the CPU) in the JAX package's scheme: conv
     and dense kernels lecun-normal (std 1/sqrt(fan_in)), the HiFi-GAN
-    ResBlocks' convs normal(0, 0.01), the flow's output convs zero (the flow
-    starts as the identity), biases zero, layer norms one, embeddings and
-    relative position embeddings normal, each weight-norm gain the norm of
-    its direction."""
+    ResBlocks' convs (and RefineGAN's input, latent and output convs)
+    normal(0, 0.01), the flow's output convs zero (the flow starts as the
+    identity), biases zero, layer norms and AdaIN scales one, embeddings
+    and relative position embeddings normal, each weight-norm gain the norm
+    of its direction."""
     from ..models.commons import Conv1d, ConvTranspose1d, ResBlock
     from ..models.discriminators import NormConv2d
     from ..models.flows import ResidualCouplingLayer
+    from ..models.generators.refinegan import ParallelResBlock, RefineGANGenerator
 
     small = {id(m) for blk in module.modules() if isinstance(blk, ResBlock)
              for m in blk.modules()}
+    small |= {id(blk.input_conv) for blk in module.modules()
+              if isinstance(blk, ParallelResBlock)}
+    small |= {id(m) for dec in module.modules() if isinstance(dec, RefineGANGenerator)
+              for m in (dec.mel_conv, dec.conv_post)}
     zero = {id(layer.post) for layer in module.modules()
             if isinstance(layer, ResidualCouplingLayer)}
 
@@ -183,6 +189,19 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                     v * v, dim=tuple(range(1, v.ndim)), keepdim=True) + 1e-12))
 
 
+def build_d(discriminators: str, cfg) -> nn.Module:
+    """The discriminator of a comma list of registry names, as the JAX
+    trainer builds it: ``mpd`` alone is the MPD with the configuration's
+    spectral-norm switch; anything else goes through
+    ``custom_discriminators.build_discriminator`` at the training rate."""
+    from ..models.custom_discriminators import build_discriminator
+
+    names = [n.strip() for n in discriminators.split(",") if n.strip()]
+    if names == ["mpd"]:
+        return MultiPeriodDiscriminator(use_spectral_norm=cfg.model.use_spectral_norm)
+    return build_discriminator(names, cfg.data.sample_rate)
+
+
 def _load_state(path: str, kind: str) -> Dict[str, torch.Tensor]:
     """A G or D parameter file -> the port's state_dict: the JAX package's
     ``.npz`` (through ``convert``), or a reference / port ``.pth``
@@ -194,7 +213,7 @@ def _load_state(path: str, kind: str) -> Dict[str, torch.Tensor]:
         tree, _ = load_checkpoint(path)
         tree = tree.get("model", tree)
         return (convert.synthesizer_state_dict(tree, posterior=True) if kind == "G"
-                else convert.mpd_state_dict(tree))
+                else convert.discriminator_state_dict(tree))
     cpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = cpt.get("model", cpt.get("weight", cpt)) if isinstance(cpt, dict) else cpt
     return {k: v.float() for k, v in normalize_weight_norm_keys(sd).items()
@@ -209,11 +228,6 @@ def _fits(module: nn.Module, sd: Dict[str, torch.Tensor]) -> bool:
 
 class Trainer:
     def __init__(self, cfg, args: TrainerArgs):
-        if args.discriminators.replace(" ", "") != "mpd":
-            raise NotImplementedError(
-                f"--discriminators {args.discriminators!r}: the port trains with "
-                "the multi-period discriminator only; the discriminator zoo "
-                "waits for ROADMAP A.11")
         if args.use_orbax:
             raise NotImplementedError(
                 "--use_orbax: orbax checkpoints are the JAX package's; the "
@@ -222,9 +236,6 @@ class Trainer:
             raise NotImplementedError(
                 f"--gpu {args.device_indices}: training on several cards waits "
                 "for ROADMAP A.13")
-        if cfg.model.vocoder != "HiFi-GAN":
-            raise NotImplementedError(
-                f"the {cfg.model.vocoder!r} vocoder is not ported yet (ROADMAP A.9)")
         train_over = {}
         if args.batch_size:
             train_over["batch_size"] = args.batch_size
@@ -251,8 +262,7 @@ class Trainer:
         self.steps_per_epoch = max(1, self.batcher.steps_per_epoch())
 
         self.model_g = Synthesizer.from_config(cfg, device=self.device, train=True)
-        self.model_d = MultiPeriodDiscriminator(
-            use_spectral_norm=cfg.model.use_spectral_norm).to(self.device)
+        self.model_d = build_d(args.discriminators, cfg).to(self.device)
         spe, t = self.steps_per_epoch, cfg.train
         self.sched_g = make_epoch_lr_schedule(args.lr_g or t.learning_rate, spe,
                                               t.warmup_epochs, t.lr_decay)

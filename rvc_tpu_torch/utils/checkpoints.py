@@ -24,8 +24,24 @@ StateDict = Dict[str, torch.Tensor]
 
 META_KEYS = ("config", "sr", "f0", "version", "vocoder", "embedder_model",
              "speakers_id", "author", "model_hash", "epoch", "step")
-# the first ConvTranspose's kernel size is unique per sample rate
+# the first ConvTranspose's kernel size is unique per sample rate (NSF's
+# dec.ups.0, MRF HiFi-GAN's dec.upsamples.0; RefineGAN has none)
 _SR_BY_UP0_KERNEL = {20: 32000, 16: 40000, 24: 48000}
+_UP0_KEYS = ("dec.ups.0.weight_v", "dec.ups.0.weight", "dec.upsamples.0.weight_v",
+             "dec.upsamples.0.weight")
+# a key only that decoder has
+_VOCODER_KEYS = (("dec.mrfs.0.0.layers.0.conv1.weight_v", "MRF HiFi-GAN"),
+                 ("dec.mel_conv.weight_v", "RefineGAN"))
+
+
+def detect_vocoder(sd: Dict[str, Any], meta: Dict[str, Any]) -> str:
+    """The decoder a state_dict holds, by its keys as the JAX package's
+    ``convert_torch_synthesizer`` recognises it (a full ``G_`` file carries
+    no metadata); else the file's ``vocoder`` field, else HiFi-GAN."""
+    for key, vocoder in _VOCODER_KEYS:
+        if key in sd:
+            return vocoder
+    return meta.get("vocoder") or "HiFi-GAN"
 
 
 def normalize_weight_norm_keys(sd: Dict[str, Any]) -> Dict[str, Any]:
@@ -55,8 +71,11 @@ def load_rvc_pth(path: str) -> Tuple[StateDict, Dict[str, Any]]:
     A deployable file keeps fp16 tensors under ``"weight"`` beside the
     18-element ``"config"`` list and the metadata fields; a full training
     checkpoint keeps them under ``"model"`` with no config and no sample
-    rate, which then comes from the kernel size of ``dec.ups.0``. A
-    discriminator checkpoint is refused."""
+    rate, which then comes from the kernel size of the first transposed
+    conv (``dec.ups.0``, or MRF HiFi-GAN's ``dec.upsamples.0``); where
+    there is none that tells (RefineGAN), a warning is printed and callers
+    assume 48 kHz, as in the JAX package. A discriminator checkpoint is
+    refused."""
     cpt = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(cpt, dict) and "weight" in cpt:
         weights = cpt["weight"]
@@ -72,14 +91,16 @@ def load_rvc_pth(path: str) -> Tuple[StateDict, Dict[str, Any]]:
           if not k.startswith("enc_q.")}
     meta = {k: cpt.get(k) for k in META_KEYS} if isinstance(cpt, dict) else {}
     if not meta.get("sr"):
-        for key in ("dec.ups.0.weight_v", "dec.ups.0.weight"):
-            if key in sd:
-                sr = _SR_BY_UP0_KERNEL.get(int(sd[key].shape[-1]))
-                if sr is not None:
-                    meta["sr"] = sr
-                    print(f"load_rvc_pth: inferred sample_rate={sr} from decoder "
-                          "shapes (checkpoint carries no sr metadata)")
-                break
+        k0 = next((int(sd[k].shape[-1]) for k in _UP0_KEYS if k in sd), None)
+        sr = _SR_BY_UP0_KERNEL.get(k0)
+        if sr is not None:
+            meta["sr"] = sr
+            print(f"load_rvc_pth: inferred sample_rate={sr} from decoder "
+                  "shapes (checkpoint carries no sr metadata)")
+        else:
+            print("load_rvc_pth: WARNING - checkpoint has no sr metadata and "
+                  "the decoder shape is unrecognized; callers will assume 48k, "
+                  "which may mismatch")
     return sd, meta
 
 
@@ -153,7 +174,7 @@ def build_synthesizer(sd: StateDict, meta: Dict[str, Any],
     dev = resolve_device(device)
     sr = normalize_sr(meta.get("sample_rate", meta.get("sr")))
     tgt_sr = int(sr) if sr else 48000
-    vocoder = meta.get("vocoder") or "HiFi-GAN"
+    vocoder = detect_vocoder(sd, meta)
     # full training checkpoints carry f0=None: pitch guidance unless 0
     f0_meta = meta.get("f0")
     use_f0 = bool(1 if f0_meta is None else f0_meta)

@@ -598,14 +598,37 @@ def test_train_config_and_trainer_args_follow_the_flags():
     (["--discriminators", "mpd,mrd"], "A.11"), (["--use_orbax", "True"], "will not have orbax"),
     (["--gpu", "0-1"], "A.13"), (["--vocoder", "RefineGAN"], "A.9")])
 def test_unported_train_options_raise(tmp_path, monkeypatch, extra, item):
+    """Options the port does not serve raise ``NotImplementedError`` naming
+    their ROADMAP item. The discriminator zoo (A.11) and the other vocoders
+    (A.9), which raised so before they were ported, now build the trainer's
+    models (its ``fit`` is stubbed: the filelist is empty)."""
     from rvc_tpu_torch import cli
+    from rvc_tpu_torch.models.custom_discriminators import (
+        CombinedDiscriminator, MultiResolutionDiscriminator)
+    from rvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+    from rvc_tpu_torch.models.generators.refinegan import RefineGANGenerator
+    from rvc_tpu_torch.train.trainer import Trainer
 
     monkeypatch.chdir(tmp_path)
     os.makedirs(tmp_path / "logs" / "m")
     (tmp_path / "logs" / "m" / "filelist.txt").write_text("")
+    argv = ["train", "--model_name", "m", "--sample_rate", "48000",
+            "--device", "cpu", *extra]
+    if item in ("A.11", "A.9"):
+        built = []
+        monkeypatch.setattr(Trainer, "fit", lambda self: built.append(self))
+        assert cli.main(argv) == 0
+        (trainer,) = built
+        if item == "A.11":
+            d = trainer.model_d
+            assert isinstance(d, CombinedDiscriminator)
+            assert [type(m) for m in d.discriminators] == [
+                MultiPeriodDiscriminator, MultiResolutionDiscriminator]
+        else:
+            assert isinstance(trainer.model_g.dec, RefineGANGenerator)
+        return
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
-        cli.main(["train", "--model_name", "m", "--sample_rate", "48000",
-                  "--device", "cpu", *extra])
+        cli.main(argv)
 
 
 def test_trainer_refuses_a_missing_card(tmp_path):
