@@ -54,6 +54,17 @@ Phases, in this order, each printing one JSON line:
            MRF HiFi-GAN at 40 kHz (mpd,mrd; 2 epochs, a resume to 3) and
            RefineGAN at 32 kHz (mpd,mssbcqt; 2 epochs), each trained model
            converting 10 s
+  fx       the rest of the user's CLI: ``infer`` of 10 s with formant
+           shifting, ``--clean_audio``, all ten effects and FLAC export
+           (read back equal to the WAV); ``batch_infer`` of the four
+           `batch` files with the chain on (one device batch; each output
+           the chain on its row); the chain, formant and the gate on the
+           card against the CPU; each effect's ms, the chain's, formant's
+           and the gate's on the card and on the host's CPU; the warm
+           converter's wall with and without everything on;
+           ``model_blender`` with a second full-width seed,
+           ``model_information``, a conversion with the blend,
+           ``audio_analyzer``, ``check_environment``
   kernels  hold each kernel against its plain PyTorch version at the shapes
            every path recorded (every stage tail, and every chain run on its
            own, at its leaky slope, RefineGAN's 0.2 too; forward, and at the
@@ -70,6 +81,7 @@ Phases, in this order, each printing one JSON line:
            device busy time, idle share, the heaviest kernels
 
     python3 chip_smoke.py env,build,pipeline,kernels   # a subset of the phases
+    python3 chip_smoke.py env,build,files,fx,kernels   # the output effects
     python3 chip_smoke.py env,build,unit   # the kernel checks alone, at the
                                            # serving shapes, without the models
 Then a ``{"kernels": [...]}`` line and, last, the result line
@@ -538,8 +550,9 @@ def phase_kernel_grads(grad_uses, gen):
     the error over the norm, per tensor), in bf16 and f32. In the path's dtype
     (bf16) it times, per stage and per step, the kernel's forward, the
     Functions' backward (the plain-conv recompute, as the JAX package's
-    custom_vjp; no hand-written kernel), the plain version's forward and
-    backward, and cuDNN's bf16 chain forward and backward, beside their
+    custom_vjp; no hand-written kernel), the plain version's forward alone
+    and with its backward, cuDNN's f32 and bf16 chains forward alone, and
+    cuDNN's bf16 chain forward and backward, beside their
     bounds (the backward: recompute + input and weight gradients, 3x the
     forward's products)."""
     import torch
@@ -611,6 +624,10 @@ def phase_kernel_grads(grad_uses, gen):
                 xbytes = x.numel() * 2
                 with torch.no_grad():
                     row["fwd_ms"] = gpu_time_ms(kernel)
+                    row["plain_fwd_ms"] = gpu_time_ms(plain, 3)
+                    row["cudnn_f32_fwd_ms"] = gpu_time_ms(lambda: sum(
+                        _library_chain(x32, ch, dil, slope) for ch in chains32), 3)
+                    row["cudnn_bf16_fwd_ms"] = gpu_time_ms(library, 3)
                 row["fwd_bound_ms"] = bound(2 * xbytes + wbytes,
                                             [(flops, PEAK_BF16)] if name == "mrf_stage"
                                             else [(3 * flops, PEAK_TF32)])[0]
@@ -623,7 +640,8 @@ def phase_kernel_grads(grad_uses, gen):
                 row["cudnn_fwd_bwd_ms"] = gpu_time_ms(
                     lambda: torch.autograd.grad(library(), flat, cot), 3)
                 for run, calls in runs.items():
-                    for f in ("fwd_ms", "fwd_bound_ms", "bwd_recompute_ms", "bwd_bound_ms",
+                    for f in ("fwd_ms", "fwd_bound_ms", "plain_fwd_ms", "cudnn_f32_fwd_ms",
+                              "cudnn_bf16_fwd_ms", "bwd_recompute_ms", "bwd_bound_ms",
                               "plain_fwd_bwd_ms", "cudnn_fwd_bwd_ms"):
                         per_step[run][name][f] += calls * row[f]
             emit({"phase": "kernel_grad_check", **row})
@@ -1240,14 +1258,8 @@ def phase_batch(smi: str, paths: dict, root: str):
 
     from rvc_tpu_torch.infer.converter import VoiceConverter
     from rvc_tpu_torch.infer.pipeline import Pipeline, PipelineConfig
-    from rvc_tpu_torch.utils.audio_io import write_wav
 
-    src = os.path.join(root, "batch_in")
-    os.makedirs(src, exist_ok=True)
-    lengths = {"a": 3.0, "b": 5.0, "c": 8.0, "d": 11.0}
-    for i, (name, sec) in enumerate(lengths.items()):
-        write_wav(os.path.join(src, f"{name}.wav"),
-                  _audio(sec, np.random.default_rng(20 + i)), 16000)
+    src, lengths = _batch_files(root)
 
     def argv(out):
         return ["batch_infer", "--input_folder", src, "--output_folder", out,
@@ -2082,6 +2094,264 @@ def phase_zoo(smi: str, files: dict, root: str):
 
 # -- the dataset path: preprocess, extract, train, index, every f0 method ------
 
+# phase `fx`: the output effects, formant shifting, clean_audio and export
+FX_FLAGS = ["--post_process", "True", "--reverb", "True", "--pitch_shift", "True",
+            "--limiter", "True", "--gain", "True", "--distortion", "True",
+            "--chorus", "True", "--bitcrush", "True", "--clipping", "True",
+            "--compressor", "True", "--delay", "True",
+            "--pitch_shift_semitones", "2", "--compressor_ratio", "4"]
+FX_ALL = ["--formant_shifting", "True", "--formant_timbre", "1.2",
+          "--clean_audio", "True", *FX_FLAGS]
+# card against the CPU on 2 s of a tone over noise: the effects' steps are
+# float64 where numpy's are, and float32 where numpy's are (the STFTs of a
+# float32 signal); a gate bin at its threshold may fall on the other side
+# (the mask moves by one kernel weight, 1/90 at 48 kHz); in the chain,
+# distortion's drive (x17.8) carries the pitch shift's float32 STFT
+# rounding into bitcrush, which may then move a sample one step (1/128)
+FX_TOL = {"effect": 1e-5, "chain": 1e-5, "formant": 1e-4, "gate": 1e-3}
+LSB = 1.0 / 32768  # one step of a 16-bit file
+
+
+def _voice48(seconds: float, rng) -> np.ndarray:
+    """48 kHz test audio: a 220 Hz tone and its third harmonic under a slow
+    tremolo with gaps, over a little noise."""
+    t = np.arange(int(seconds * 48000)) / 48000
+    tone = np.sin(2 * np.pi * 220 * t) + 0.3 * np.sin(2 * np.pi * 660 * t)
+    env = (0.6 + 0.4 * np.sin(2 * np.pi * 2 * t)) * ((t % 0.4) < 0.3)
+    return (0.5 * env * tone + 0.03 * rng.normal(size=t.size)).astype(np.float32)
+
+
+def _batch_files(root: str) -> tuple:
+    """The `batch` phase's four files (3, 5, 8, 11 s), written once."""
+    from rvc_tpu_torch.utils.audio_io import write_wav
+
+    src = os.path.join(root, "batch_in")
+    lengths = {"a": 3.0, "b": 5.0, "c": 8.0, "d": 11.0}
+    if not os.path.isdir(src):
+        os.makedirs(src)
+        for i, (name, sec) in enumerate(lengths.items()):
+            write_wav(os.path.join(src, f"{name}.wav"),
+                      _audio(sec, np.random.default_rng(20 + i)), 16000)
+    return src, lengths
+
+
+def _fx_kwargs(argv) -> dict:
+    """``convert_audio``'s keyword arguments for a list of CLI flags."""
+    from rvc_tpu_torch.cli import build_parser, collect_infer_kwargs
+
+    args = build_parser().parse_args(["infer", "--input_path", "-", "--output_path",
+                                      "-", "--pth_path", "-", *argv])
+    kw = collect_infer_kwargs(args)
+    return {flag[2:]: kw[flag[2:]] for flag in argv[::2]}
+
+
+def _cpu_time_ms(fn, reps: int = 3) -> float:
+    """Median host-clock ms of a CPU call, after one warm-up call."""
+    fn()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def phase_fx(smi: str, files: dict, root: str):
+    """The rest of the user's offline CLI on the card. ``infer`` on 10 s
+    with everything on (formant shifting at timbre 1.2, ``--clean_audio``,
+    all ten effects with a 2-semitone shift and a 4:1 compressor, FLAC
+    export): the kernels' launches, the FLAC read back equal to the WAV
+    beside it, finite samples of ``_p_len``'s length. ``batch_infer`` of
+    the `batch` phase's four files with the chain on, in one device batch:
+    each file's chain output held to the chain run again on that file's
+    packed conversion (the rows draw their flow noise from one generator, so
+    a packed file is not its one-by-one conversion). Each effect, the
+    chain, formant shifting and the gate on 2 s of a tone over noise on the
+    card against the CPU (the chain on the converted output reported too);
+    each effect's, the chain's, formant's and the gate's ms on 10 s (CUDA
+    events, median of 3 warm runs) and on the card host's CPU (host clock);
+    the warm ``VoiceConverter`` wall of 10 s with and without everything on,
+    in turns. Then
+    the tools: ``model_blender`` of the files' model with a second seed,
+    ``model_information`` of the blend, a 10 s conversion with it,
+    ``audio_analyzer`` of that, and ``check_environment``'s report."""
+    import torch
+
+    from rvc_tpu_torch.infer import converter as conv
+    from rvc_tpu_torch.infer import postprocess as fx
+    from rvc_tpu_torch.infer.formant import formant_shift
+    from rvc_tpu_torch.ops.sps_stft import stft
+    from rvc_tpu_torch.utils.audio_io import write_wav
+    from rvc_tpu_torch.utils.checkpoints import export_rvc_pth
+    from rvc_tpu_torch.utils.env_check import check_environment
+    from rvc_tpu_torch.utils.native import flac_read
+
+    t_phase = time.perf_counter()
+    emit({"phase": "fx_env", "report": check_environment(verbose=False)})
+    rng = np.random.default_rng(40)
+    wav = os.path.join(root, "fx_in.wav")
+    write_wav(wav, _audio(10.0, rng), 16000)
+    out = os.path.join(root, "fx_out.wav")
+    argv = ["infer", "--input_path", wav, "--output_path", out,
+            "--pth_path", files["pth"], *_flags(files), *FX_ALL, "--export_format", "FLAC"]
+    shapes = record_path_shapes(lambda: _cli(argv, root))
+    with _Probe() as probe:
+        _reset_counts()
+        cli_wall = _cli(argv, root)
+        counts = _counts()
+    for name, c in counts.items():
+        require(c > 0, f"kernel {name} was not launched on the fx path")
+    pipe = probe.pipe
+    n_out = _segment_len(pipe, 160000 + 2 * pipe.t_pad) - 2 * pipe.t_pad_tgt
+    data = _check_wav(out, n_out, "fx infer")
+    flac, flac_sr = flac_read(os.path.splitext(out)[0] + ".flac")
+    require(flac_sr == 48000 and flac.shape == data.shape
+            and float(np.abs(flac - data).max()) <= LSB,
+            f"fx: the FLAC does not read back as the WAV ({flac.shape}, {flac_sr} Hz)")
+
+    # batch_infer with the chain on: each file's output is the chain on its row
+    src, lengths = _batch_files(root)
+    seen = []
+    effects = conv.VoiceConverter._output_effects
+
+    def record(vc, audio, *a):
+        got = effects(vc, audio, *a)
+        seen.append((audio, got, vc.tgt_sr))
+        return got
+
+    conv.VoiceConverter._output_effects = record
+    try:
+        with _Probe() as probe:
+            _reset_counts()
+            batch_wall = _cli(["batch_infer", "--input_folder", src, "--output_folder",
+                               os.path.join(root, "fx_batch"), "--pth_path", files["pth"],
+                               *_flags(files), *FX_FLAGS], root)
+            batch_counts, rows, bpipe = _counts(), probe.rows, probe.pipe
+    finally:
+        conv.VoiceConverter._output_effects = effects
+    require(rows == [4] and len(seen) == 4, f"fx batch: rows {rows}, {len(seen)} outputs")
+    for name, c in batch_counts.items():
+        require(c > 0, f"kernel {name} was not launched on the fx batch path")
+    chain_kw = _fx_kwargs(FX_FLAGS)
+    batch_err = 0.0
+    t_bucket = bpipe._bucket_len(int(max(lengths.values()) * 16000) + 2 * bpipe.t_pad)
+    for name, (before, after, sr) in zip(sorted(lengths), seen):
+        again = fx.apply_post_process(torch.from_numpy(before).cuda(), sr, **chain_kw)
+        n16 = int(lengths[name] * 16000) + 2 * bpipe.t_pad
+        written = _check_wav(os.path.join(root, "fx_batch", f"{name}_output.wav"),
+                             bpipe._p_len(n16, t_bucket) * bpipe.upp - 2 * bpipe.t_pad_tgt,
+                             f"fx batch {name}")
+        require(written.shape == after.shape == before.shape, f"fx batch {name}: length")
+        batch_err = max(batch_err, float(np.abs(again.cpu().numpy() - after).max()))
+        require(float(np.abs(written - after).max()) <= LSB,
+                f"fx batch {name}: the file is not the chain's output")
+    require(batch_err <= 1e-6, f"fx batch: the chain again differs by {batch_err}")
+
+    # the card against the CPU on 2 s of a tone over noise, each effect
+    # alone and in the chain; on the converted output too, reported only:
+    # the phase vocoder carries a bin's phase from frame to frame, and where
+    # a bin is at rounding level (a constant or silent frame of the clipped,
+    # bitcrushed output) two FFT libraries give it different phases
+    y48 = torch.from_numpy(_voice48(2.0, np.random.default_rng(41)))
+    x16 = torch.from_numpy(_audio(2.0, np.random.default_rng(41)))
+    effect_kw = {"pitch_shift": {"semitones": 2.0}, "compressor": {"ratio": 4.0}}
+    funcs = {name: (lambda a, n=name: getattr(fx, n)(a, 48000, **effect_kw.get(n, {})),
+                    y48, "effect") for name in fx.EFFECT_ORDER}
+    funcs.update({
+        "chain": (lambda a: fx.apply_post_process(a, 48000, **chain_kw), y48, "chain"),
+        "formant": (lambda a: formant_shift(a, 16000, 1.0, 1.2), x16, "formant"),
+        "gate": (lambda a: fx.spectral_gate(a, 48000, 0.7), y48, "gate")})
+    vs_cpu = {}
+    for name, (f, a, kind) in funcs.items():
+        diff = np.abs(f(a.cuda()).cpu().numpy() - f(a).numpy())
+        over = diff > FX_TOL[kind]
+        vs_cpu[name] = {"max_abs_diff": float(diff.max()), "tol": FX_TOL[kind],
+                        "samples_over_tol": int(over.sum())}
+        ok = (not over.any() if name != "chain"
+              else over.sum() <= diff.size // 1000 and diff.max() <= 1 / 128 + FX_TOL[kind])
+        require(ok, f"fx {name}: card vs CPU {vs_cpu[name]}")
+    out2s = torch.from_numpy(data[:96000].copy())
+    chain_f = funcs["chain"][0]
+    diff = np.abs(chain_f(out2s.cuda()).cpu().numpy() - chain_f(out2s).numpy())
+    stages, cur = {}, out2s  # each effect on the CPU chain's input to it
+    for name in fx.EFFECT_ORDER:
+        ref = funcs[name][0](cur)
+        stages[name] = float((funcs[name][0](cur.cuda()).cpu() - ref).abs().max())
+        cur = ref
+    bins = stft(out2s, 2048, 512).abs()
+    vs_cpu["chain_on_output"] = {
+        "max_abs_diff": float(diff.max()), "samples_over_1e-5": int((diff > 1e-5).sum()),
+        "each_effect_max_abs_diff": stages, "distinct_values": int(out2s.unique().numel()),
+        "stft_bins_under_1e-6_of_max": float((bins < 1e-6 * bins.max()).double().mean())}
+
+    # times on 10 s: each effect, the chain, formant (16 kHz in) and the gate
+    y = torch.from_numpy(data)
+    x = torch.from_numpy(_audio(10.0, np.random.default_rng(42)))
+    ms, cpu_ms = {}, {}
+    for name, (f, a, _) in funcs.items():
+        a = x if name == "formant" else y
+        a_dev = a.cuda()
+        ms[name] = gpu_time_ms(lambda: f(a_dev), 3)
+        cpu_ms[name] = _cpu_time_ms(lambda: f(a))
+
+    # the warm converter's wall on 10 s, without and with everything on
+    base_kw = dict(model_path=files["pth"], index_path=files["index"], f0_method="rmvpe",
+                   index_rate=0.75, protect=0.33, pitch=2)
+    all_kw = {**base_kw, **_fx_kwargs(FX_ALL), "export_format": "FLAC"}
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        vc = conv.VoiceConverter()
+        walls = {"plain": [], "everything_on": []}
+        kws = {"plain": base_kw, "everything_on": all_kw}
+        for label, kw in kws.items():  # warm-up
+            vc.convert_audio(wav, os.path.join(root, f"fx_w_{label}.wav"), **kw)
+        # in turns, each side first as often: plain, on, on, plain, plain, on
+        for label in ("plain", "everything_on", "everything_on", "plain", "plain",
+                      "everything_on"):
+            t0 = time.perf_counter()
+            vc.convert_audio(wav, os.path.join(root, f"fx_w_{label}.wav"), **kws[label])
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+        del vc
+
+        # the tools: blend with a second full-width seed, inspect, convert, analyze
+        cfg = _config(False)
+        second = _synth(cfg, False, "cpu")
+        _fill_random(second, np.random.default_rng(1))
+        other = os.path.join(root, "model_b.pth")
+        export_rvc_pth(second, other, cfg)
+        del second
+        t0 = time.perf_counter()
+        _cli(["model_blender", "--model_name", "fx_blend", "--pth_path_1", files["pth"],
+              "--pth_path_2", other, "--ratio", "0.5"], root)
+        blend_s = time.perf_counter() - t0
+        blend = os.path.join(root, "logs", "fx_blend.pth")
+        _cli(["model_information", "--pth_path", blend], root)
+        blend_out = os.path.join(root, "fx_blend_out.wav")
+        _cli(["infer", "--input_path", wav, "--output_path", blend_out,
+              "--pth_path", blend, *_flags(files)], root)
+        _check_wav(blend_out, n_out, "fx blend infer")
+        from rvc_tpu_torch.utils.analyzer import analyze_audio
+
+        stats, _ = analyze_audio(blend_out, device="cuda")
+        require(all(np.isfinite(v) for v in stats.values()), f"analyzer: {stats}")
+        _cli(["audio_analyzer", "--input_path", out, "--device", "cuda"], root)
+    finally:
+        os.chdir(cwd)
+    torch.cuda.empty_cache()
+    emit({"phase": "fx", "gpu": smi, "launches": counts, "batch_launches": batch_counts,
+          "samples": int(data.shape[0]), "cli_wall_s": cli_wall, "batch_cli_wall_s": batch_wall,
+          "batch_rows": rows, "batch_chain_again_max_abs_diff": batch_err,
+          "card_vs_cpu": vs_cpu, "ms_10s": ms, "cpu_ms_10s": cpu_ms,
+          "converter_wall_s": {k: statistics.median(v) for k, v in walls.items()},
+          "converter_wall_s_all": walls, "blend_s": blend_s,
+          "blend_analyzer": stats, "phase_s": time.perf_counter() - t_phase,
+          "kernel_shapes": [[str(v) if isinstance(v, torch.dtype) else v for v in sh]
+                            for sh in shapes]})
+    return counts, shapes
+
+
 PREP_SR = 44100
 PREP_FILES = 20            # 10 16-bit stereo, 10 float mono
 PREP_FILE_S = 30           # 20 x 30 s = 10 minutes
@@ -2492,7 +2762,7 @@ def main(argv) -> int:
         return 2
     phases = argv[1].split(",") if len(argv) > 1 else [
         "env", "build", "small", "pipeline", "stream", "files", "windowed", "batch",
-        "nof0", "train", "prep", "zoo", "kernels", "stages"]
+        "nof0", "train", "prep", "zoo", "fx", "kernels", "stages"]
     sys.path.insert(0, REPO)
     import rvc_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -2504,7 +2774,8 @@ def main(argv) -> int:
     counts, rec, launches, path_shapes = {}, {}, {}, {}
     if "unit" in phases:
         phase_kernels({"unit": UNIT_SHAPES})
-    user_paths = [p for p in ("windowed", "batch", "nof0", "prep", "zoo") if p in phases]
+    user_paths = [p for p in ("windowed", "batch", "nof0", "prep", "zoo", "fx")
+                  if p in phases]
     root = tempfile.mkdtemp(prefix="rvc_chip_smoke_")
     try:
         if "pipeline" in phases:
@@ -2514,7 +2785,7 @@ def main(argv) -> int:
                 phase_stream(pipe, audio, index, smi)
         if "files" in phases or user_paths:
             files = phase_files(smi, root)
-            for name in (p for p in user_paths if p not in ("prep", "zoo")):
+            for name in (p for p in user_paths if p not in ("prep", "zoo", "fx")):
                 phase = {"windowed": phase_windowed, "batch": phase_batch,
                          "nof0": phase_nof0}[name]
                 launches[name], path_shapes[name] = phase(smi, files, root)
@@ -2535,6 +2806,8 @@ def main(argv) -> int:
             path_shapes.update(z_shapes)
             for k, runs in z_uses.items():
                 grad_uses.setdefault(k, {}).update(runs)
+        if "fx" in phases:
+            launches["fx"], path_shapes["fx"] = phase_fx(smi, files, root)
         if "kernels" in phases and path_shapes:  # at the shapes the paths gave
             rec = phase_kernels(path_shapes, grad_uses or None).get("pipeline", {})
         if "pipeline" in phases and "stages" in phases:

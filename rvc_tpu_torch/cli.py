@@ -1,9 +1,11 @@
-"""Command line of the port: the ``infer``, ``batch_infer``, ``preprocess``,
-``extract``, ``train`` and ``index`` subcommands (port of
-``rvc_tpu/cli.py``'s), run on the card.
+"""Command line of the port: the JAX CLI's offline subcommands (port of
+``rvc_tpu/cli.py``), run on the card.
 
     python -m rvc_tpu_torch.cli infer --input_path in.wav --output_path out.wav \\
-        --pth_path model.pth --index_path model.index [--device cuda]
+        --pth_path model.pth --index_path model.index [--device cuda] \\
+        [--formant_shifting True --formant_timbre 1.2 --clean_audio True \\
+         --post_process True --reverb True --pitch_shift True \\
+         --pitch_shift_semitones 2 --export_format FLAC]
     python -m rvc_tpu_torch.cli batch_infer --input_folder in/ --output_folder out/ \\
         --pth_path model.pth
     python -m rvc_tpu_torch.cli preprocess --model_name m --dataset_path data/ \\
@@ -14,20 +16,29 @@
         [--total_epoch 200 --batch_size 8 --save_every_epoch 10 \\
          --vocoder "MRF HiFi-GAN" --discriminators mpd,mrd ...]
     python -m rvc_tpu_torch.cli index --model_name m [--index_algorithm KMeans]
+    python -m rvc_tpu_torch.cli model_information --pth_path model.pth
+    python -m rvc_tpu_torch.cli model_blender --model_name mix \\
+        --pth_path_1 a.pth --pth_path_2 b.pth [--ratio 0.5]
+    python -m rvc_tpu_torch.cli tensorboard [--logdir logs --port 9000]
+    python -m rvc_tpu_torch.cli audio_analyzer --input_path out.wav \\
+        [--save_plot_path report.png --device cuda]
 
 The dataset commands run from the directory that holds ``logs/`` and write
 into ``logs/<model_name>/``: ``preprocess`` the sliced WAVs, ``extract``
 the f0 and feature files with ``filelist.txt``, ``train`` its checkpoints
-and, at its end, the index, as ``index`` does. The parser is the port's own
-copy of the JAX CLI's argument surface for these subcommands, flag for
-flag, so that a command line written for it parses unchanged; ``--device``
-(default ``cuda``) is added. Options the port does not serve yet raise
-``NotImplementedError`` naming their ROADMAP item when set (for inference:
-formant shifting, the post-FX chain, ``--clean_audio``, formats other than
-WAV; for training: ``--use_orbax``, several ``--gpu`` indices). Every
-vocoder (``--vocoder "HiFi-GAN" | "MRF HiFi-GAN" | RefineGAN``) trains and
-converts, at 32, 40 and 48 kHz, and ``--discriminators`` takes any comma
-list of the JAX registry's names. ``main(argv)`` returns the exit code.
+and, at its end, the index, as ``index`` does. ``infer`` and
+``batch_infer`` serve every option of the JAX CLI: formant shifting, the
+spectral gate (``--clean_audio``) and the ten-effect post-FX chain on the
+card, and export to WAV, FLAC, or MP3 / OGG / M4A through ``ffmpeg`` when
+it is on ``PATH``. ``model_blender`` writes ``logs/<model_name>.pth``. The
+parser is the port's own copy of the JAX CLI's argument surface for these
+subcommands, flag for flag, so that a command line written for it parses
+unchanged; ``--device`` (default ``cuda``) is added. Training's
+``--use_orbax`` and several ``--gpu`` indices raise
+``NotImplementedError``. Every vocoder (``--vocoder "HiFi-GAN" | "MRF
+HiFi-GAN" | RefineGAN``) trains and converts, at 32, 40 and 48 kHz, and
+``--discriminators`` takes any comma list of the JAX registry's names.
+``main(argv)`` returns the exit code.
 """
 
 from __future__ import annotations
@@ -35,6 +46,7 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 
 def _bool(v) -> bool:
@@ -285,6 +297,21 @@ def build_parser() -> argparse.ArgumentParser:
     _add_train_args(p)
     p = sub.add_parser("index", help="Build the retrieval index")
     _add_index_args(p)
+    p = sub.add_parser("model_information", help="Print model metadata")
+    p.add_argument("--pth_path", type=str, required=True)
+    p = sub.add_parser("model_blender", help="Blend two models")
+    p.add_argument("--model_name", type=str, required=True)
+    p.add_argument("--pth_path_1", type=str, required=True)
+    p.add_argument("--pth_path_2", type=str, required=True)
+    p.add_argument("--ratio", type=float, default=0.5)
+    p = sub.add_parser("tensorboard", help="Launch metric dashboard")
+    p.add_argument("--logdir", type=str, default="logs")
+    p.add_argument("--port", type=int, default=9000)
+    p = sub.add_parser("audio_analyzer", help="Analyze an audio file")
+    p.add_argument("--input_path", type=str, required=True)
+    p.add_argument("--save_plot_path", type=str, default=None)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the statistics (the card by default)")
     return parser
 
 
@@ -403,10 +430,50 @@ def _index(args) -> None:
                       export_faiss=args.export_faiss, device=args.device))
 
 
+def _model_information(args) -> None:
+    from .utils.model_tools import model_information
+
+    model_information(args.pth_path)
+
+
+def _model_blender(args) -> None:
+    from .utils.model_tools import model_blender
+
+    print(model_blender(args.model_name, args.pth_path_1, args.pth_path_2,
+                        args.ratio))
+
+
+def _serve_forever() -> None:
+    while True:
+        time.sleep(60)
+
+
+def _tensorboard(args) -> None:
+    try:
+        from tensorboard import program
+    except ImportError:
+        print("tensorboard not installed; metrics are in "
+              f"{args.logdir}/*/metrics.jsonl")
+        return
+    tb = program.TensorBoard()
+    tb.configure(argv=[None, "--logdir", args.logdir, "--port", str(args.port)])
+    print(f"TensorBoard at {tb.launch()}")
+    _serve_forever()
+
+
+def _audio_analyzer(args) -> None:
+    from .utils.analyzer import analyze_audio
+
+    analyze_audio(args.input_path, args.save_plot_path, device=args.device)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     runners = {"train": _train, "preprocess": _preprocess,
-               "extract": _extract, "index": _index}
+               "extract": _extract, "index": _index,
+               "model_information": _model_information,
+               "model_blender": _model_blender, "tensorboard": _tensorboard,
+               "audio_analyzer": _audio_analyzer}
     if args.mode in runners:
         runners[args.mode](args)
         return 0

@@ -6,14 +6,19 @@ its content embedder and the RMVPE predictor onto one device (the card
 unless ``device="cpu"``), keeps the retrieval index resident there, and
 converts one file (``convert_audio``) or a folder (``convert_audio_batch``:
 short files packed as the rows of device batches, long ones through the
-windowed path). Output is WAV. Not ported, and refused with
-``NotImplementedError`` when asked for: formant shifting, the post-FX chain,
-``clean_audio`` and the other export formats (ROADMAP A.14).
+windowed path). Formant shifting runs on the 16 kHz input, the spectral
+gate (``clean_audio``) and the post-FX chain on the output, all three on
+the converter's device (``infer/formant.py``, ``infer/postprocess.py``):
+the audio crosses to the device once and back once for each. Output is
+WAV, then FLAC through the repo's codec or MP3 / OGG / M4A through
+``ffmpeg`` when it is on ``PATH`` (``_export``).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import subprocess
 import time
 from typing import Any, Dict, Optional, Union
 
@@ -26,28 +31,14 @@ from ..embedders.hubert import HubertConfig, load_embedder_by_name
 from ..ops.retrieval import FeatureIndex
 from ..predictors.f0_extractor import (DEFAULT_CKPTS, build_predictors,
                                        check_f0_method, parse_f0_methods)
-from ..utils.audio_io import load_audio, save_audio
+from ..utils.audio_io import load_audio, read_audio, save_audio
 from ..utils.checkpoints import build_synthesizer, load_checkpoint, load_rvc_pth
 from ..utils.split_audio import merge_audio, process_audio
+from .formant import formant_shift
 from .pipeline import Pipeline, PipelineConfig
+from .postprocess import apply_post_process, spectral_gate
 
 AUDIO_EXTS = (".wav", ".mp3", ".flac", ".ogg", ".m4a")
-# options that change the output, and the ROADMAP item that will bring them
-UNPORTED = {"formant_shifting": "formant shifting",
-            "post_process": "the post-FX chain",
-            "clean_audio": "clean_audio (spectral gate)"}
-
-
-def check_options(export_format: str = "WAV", **options) -> None:
-    """Raise ``NotImplementedError`` for an option the port does not serve,
-    instead of ignoring it."""
-    for key, what in UNPORTED.items():
-        if options.get(key):
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP A.14)")
-    if str(export_format).upper() != "WAV":
-        raise NotImplementedError(
-            f"export format {export_format!r} is not ported yet (ROADMAP A.14); "
-            "the port writes WAV")
 
 
 class VoiceConverter:
@@ -166,11 +157,10 @@ class VoiceConverter:
         formant_shifting: bool = False, formant_qfrency: float = 1.0,
         formant_timbre: float = 1.0, post_process: bool = False, **post_fx,
     ) -> str:
-        """Convert one file and write it as WAV at the model's rate.
-        ``hop_length`` only concerns the crepe methods; ``post_fx`` only
-        the post-FX chain (refused with ``post_process``)."""
-        check_options(export_format, formant_shifting=formant_shifting,
-                      post_process=post_process, clean_audio=clean_audio)
+        """Convert one file, write it as WAV at the model's rate and export
+        it to ``export_format``; returns the written file. ``hop_length``
+        only concerns the crepe methods; ``post_fx`` holds the post-FX
+        chain's flags and knobs (``reverb=True``, ``reverb_room_size=...``)."""
         start = time.time()
         # decode the input first: a bad file fails before the model loads
         audio16 = load_audio(audio_input_path, 16000)
@@ -181,6 +171,8 @@ class VoiceConverter:
         peak = np.abs(audio16).max() / 0.95
         if peak > 1.0:
             audio16 = audio16 / peak
+        if formant_shifting:
+            audio16 = self._formant(audio16, formant_qfrency, formant_timbre)
         inp_f0 = None
         if f0_file and os.path.exists(f0_file):
             with open(f0_file) as f:
@@ -203,6 +195,8 @@ class VoiceConverter:
         else:
             audio_out = self.pipeline.pipeline(audio16, **kwargs)
 
+        audio_out = self._output_effects(audio_out, clean_audio, clean_strength,
+                                         post_process, post_fx)
         save_audio(audio_output_path, audio_out, self.tgt_sr)
         out_path = self._export(audio_output_path, export_format)
         print(f"converted {audio_input_path} in {time.time() - start:.2f}s -> {out_path}")
@@ -217,8 +211,6 @@ class VoiceConverter:
         ``convert_segments_batch``; files longer than ``t_max`` once padded
         take ``convert_audio``'s windowed path. ``split_audio`` and
         ``f0_file`` convert every file through ``convert_audio``."""
-        check_options(kwargs.get("export_format", "WAV"),
-                      **{k: kwargs.get(k) for k in UNPORTED})
         files = [os.path.join(audio_input_paths, f)
                  for f in sorted(os.listdir(audio_input_paths))
                  if f.lower().endswith(AUDIO_EXTS)]
@@ -250,6 +242,9 @@ class VoiceConverter:
             peak = np.abs(audio).max() / 0.95
             if peak > 1.0:
                 audio = audio / peak
+            if kwargs.get("formant_shifting"):
+                audio = self._formant(audio, kwargs.get("formant_qfrency", 1.0),
+                                      kwargs.get("formant_timbre", 1.0))
             fits = len(audio) + 2 * pipe.t_pad <= pipe.t_max
             (short if fits else long_files).append((f, audio))
 
@@ -284,14 +279,56 @@ class VoiceConverter:
             for (f, _), source, seg_out in zip(group, sources, outs):
                 trimmed = pipe._finish(seg_out[pipe.t_pad_tgt:-pipe.t_pad_tgt],
                                        source, volume_envelope)
+                trimmed = self._output_effects(
+                    trimmed, kwargs.get("clean_audio", False),
+                    kwargs.get("clean_strength", 0.7),
+                    kwargs.get("post_process", False), kwargs)
                 save_audio(out_path(f), trimmed, self.tgt_sr)
-                print(f"batch-converted {f} -> {out_path(f)}")
+                final = self._export(out_path(f), kwargs.get("export_format", "WAV"))
+                print(f"batch-converted {f} -> {final}")
 
         for f, _ in long_files:
             self.convert_audio(f, out_path(f), **kwargs)
 
+    def _formant(self, audio16: np.ndarray, quefrency: float,
+                 timbre: float) -> np.ndarray:
+        """The 16 kHz input's formants shifted on the device."""
+        x = torch.from_numpy(np.ascontiguousarray(audio16, np.float32)).to(self.device)
+        return formant_shift(x, 16000, quefrency, timbre).cpu().numpy()
+
+    def _output_effects(self, audio: np.ndarray, clean_audio: bool,
+                        clean_strength: float, post_process: bool,
+                        post_fx: Dict[str, Any]) -> np.ndarray:
+        """The spectral gate, then the post-FX chain, on the device: the
+        output goes there once and comes back once."""
+        if not (clean_audio or post_process):
+            return audio
+        x = torch.from_numpy(np.ascontiguousarray(audio, np.float32)).to(self.device)
+        if clean_audio:
+            x = spectral_gate(x, self.tgt_sr, clean_strength)
+        if post_process:
+            x = apply_post_process(x, self.tgt_sr, **post_fx)
+        return x.cpu().numpy()
+
     @staticmethod
     def _export(path: str, export_format: str) -> str:
-        """The written file: WAV is the only format ported."""
-        check_options(export_format)
-        return path
+        """The written WAV in ``export_format``: FLAC through the repo's
+        codec (``native/flac_codec.cpp``); the other formats through
+        ``ffmpeg`` when it is on ``PATH``, else the WAV stays."""
+        fmt = export_format.upper()
+        if fmt == "WAV":
+            return path
+        if fmt == "FLAC":
+            from ..utils.native import flac_write
+
+            out = os.path.splitext(path)[0] + ".flac"
+            data, sr = read_audio(path)
+            if flac_write(out, data, sr):
+                return out
+        if shutil.which("ffmpeg") is None:
+            print(f"ffmpeg unavailable; keeping WAV for requested {export_format}")
+            return path
+        out = os.path.splitext(path)[0] + "." + export_format.lower()
+        subprocess.run(["ffmpeg", "-y", "-loglevel", "error", "-i", path, out],
+                       check=True)
+        return out

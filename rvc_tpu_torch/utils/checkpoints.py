@@ -165,13 +165,11 @@ def _fold_plain_weights(sd: StateDict, expected) -> StateDict:
     return out
 
 
-def build_synthesizer(sd: StateDict, meta: Dict[str, Any],
-                      device: Union[str, torch.device] = "cuda"):
-    """Rebuild the synthesizer a loaded file records and load its weights
-    strictly. Returns (model on ``device``, ExperimentConfig, use_f0)."""
+def synthesizer_for(sd: StateDict, meta: Dict[str, Any], device: torch.device):
+    """The unloaded synthesizer a file records, on ``device``: (model,
+    ExperimentConfig, use_f0)."""
     from ..models.synthesizer import Synthesizer
 
-    dev = resolve_device(device)
     sr = normalize_sr(meta.get("sample_rate", meta.get("sr")))
     tgt_sr = int(sr) if sr else 48000
     vocoder = detect_vocoder(sd, meta)
@@ -182,7 +180,24 @@ def build_synthesizer(sd: StateDict, meta: Dict[str, Any],
     arch.setdefault("spk_embed_dim", int(meta.get("speakers_id") or 109))
     cfg = get_config(tgt_sr, vocoder=vocoder, use_f0=use_f0, **arch)
     extra = {} if flow_layers is None else {"flow_layers": flow_layers}
-    model = Synthesizer.from_config(cfg, device="cpu", **extra)
+    return Synthesizer.from_config(cfg, device=device, **extra), cfg, use_f0
+
+
+def fold_plain_weights(sd: StateDict, meta: Dict[str, Any]) -> StateDict:
+    """A file's state_dict with each plain weight of a weight-normalized
+    module folded into ``weight_v`` / ``weight_g`` (the norm, as the JAX
+    package's converter makes it), as ``build_synthesizer`` loads it."""
+    with torch.device("meta"):
+        model, _, _ = synthesizer_for(sd, meta, torch.device("meta"))
+    return _fold_plain_weights(sd, model.state_dict())
+
+
+def build_synthesizer(sd: StateDict, meta: Dict[str, Any],
+                      device: Union[str, torch.device] = "cuda"):
+    """Rebuild the synthesizer a loaded file records and load its weights
+    strictly. Returns (model on ``device``, ExperimentConfig, use_f0)."""
+    dev = resolve_device(device)
+    model, cfg, use_f0 = synthesizer_for(sd, meta, torch.device("cpu"))
     expected = model.state_dict()
     sd = _fold_plain_weights(sd, expected)
     missing = sorted(set(expected) - set(sd))

@@ -6,12 +6,17 @@ random-initialized fallback (no files are staged), seeded the same way for
 every run. ``rvc_tpu_torch.cli.main(["infer", ...])`` must write exactly the
 samples the port's ``Pipeline.pipeline`` gives on the same loaded models
 (after the same 16-bit WAV quantization); ``batch_infer`` writes one output
-per input; options the port does not serve raise ``NotImplementedError``;
-and every command line of the JAX CLI's ``infer`` parses in the port's
-parser to the same values.
+per input; formant shifting, ``--clean_audio``, the post-FX chain and the
+export formats give, through both ``infer`` and ``batch_infer``, the file
+the JAX package's ``convert_audio`` writes with the same option (its
+synthesis stage stood in by the port's pipeline on the same models, so the
+two differ only in what the option does); FLAC export round-trips; and
+every command line of the JAX CLI's ``infer`` parses in the port's parser
+to the same values.
 """
 
 import argparse
+import shutil
 
 import numpy as np
 import pytest
@@ -62,6 +67,7 @@ def files(tmp_path_factory):
     return d
 
 
+LSB = 1.0 / 32768  # one step of a 16-bit WAV
 ARGS = ["--pitch", "2", "--index_rate", "0.75", "--protect", "0.33",
         "--f0_method", "rmvpe", "--precision", "fp32", "--device", "cpu"]
 
@@ -135,25 +141,123 @@ def test_no_f0_model_converts(files, tmp_path, monkeypatch):
     assert sr == 48000 and data.shape == (72000,) and np.abs(data).max() > 0.01
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--formant_shifting", "True"], "formant"),
-    (["--post_process", "True", "--reverb", "True"], "post-FX"),
+def _jax_convert(files, tmp_path, out_name, **options):
+    """The JAX package's ``convert_audio`` with ``options``, its synthesis
+    stage stood in by the port's ``Pipeline.pipeline`` on the models the
+    port's CLI builds (the same seed, the same order)."""
+    from rvc_tpu.infer.converter import VoiceConverter as JaxConverter
+    from rvc_tpu_torch.infer.converter import VoiceConverter
+
+    torch.manual_seed(0)
+    vc = VoiceConverter(precision="fp32", device="cpu")
+    vc.get_vc(str(files / "model.pth"))
+    predictors = vc.get_predictors("rmvpe")
+    index = vc._load_index(str(files / "added_model.index"))
+
+    class Synthesis:
+        def pipeline(self, audio16, **kw):
+            return vc.pipeline.pipeline(audio16, **dict(
+                kw, index_vectors=index, predictors=predictors))
+
+    def get_vc(*_args, **_kw):
+        jvc.pipeline, jvc.tgt_sr, jvc.use_f0 = Synthesis(), 48000, True
+
+    jvc = JaxConverter(precision="fp32")
+    jvc.get_vc = get_vc
+    jvc.get_predictors = lambda method: {}
+    jvc._load_index = lambda path: None
+    return jvc.convert_audio(
+        str(files / "in.wav"), str(tmp_path / out_name), str(files / "model.pth"),
+        index_path=str(files), pitch=2, f0_method="rmvpe", index_rate=0.75,
+        protect=0.33, **options)
+
+
+OPTION_CASES = [
+    (["--formant_shifting", "True", "--formant_timbre", "1.2"], "formant"),
+    (["--post_process", "True", "--reverb", "True", "--chorus", "True",
+      "--compressor", "True", "--compressor_ratio", "4"], "post-FX"),
     (["--clean_audio", "True"], "clean_audio"),
     (["--export_format", "MP3"], "export format"),
     (["--export_format", "OGG"], "export format"),
-])
-def test_unported_options_raise(files, tmp_path, monkeypatch, flags, match):
+]
+
+
+@pytest.mark.parametrize("flags,match", OPTION_CASES)
+def test_unported_options_raise(files, tmp_path, monkeypatch, capsys, flags, match):
+    """The options the port once refused (formant shifting, the post-FX
+    chain, ``--clean_audio``, MP3 and OGG export) now convert, through
+    ``infer`` and ``batch_infer``, to the samples the JAX package writes
+    with the same option. Without ``ffmpeg`` (none here) MP3 and OGG keep
+    the WAV and say so, as the JAX package does."""
+    from rvc_tpu import cli as jax_cli
     from rvc_tpu_torch import cli
+    from rvc_tpu_torch.utils.audio_io import read_wav
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["infer", "--input_path", str(files / "in.wav"), "--output_path",
-                  str(tmp_path / "o.wav"), "--pth_path", str(files / "model.pth"),
-                  *ARGS, *flags])
-    with pytest.raises(NotImplementedError, match=match):
-        cli.main(["batch_infer", "--input_folder", str(files), "--output_folder",
-                  str(tmp_path / "b"), "--pth_path", str(files / "model.pth"),
-                  *ARGS, *flags])
+    which = shutil.which  # no ffmpeg, whatever the machine has
+    monkeypatch.setattr(shutil, "which",
+                        lambda name, *a, **k: None if name == "ffmpeg" else which(name, *a, **k))
+    jargs = jax_cli.build_parser().parse_args(
+        ["infer", "--input_path", "i", "--output_path", "o", "--pth_path", "m",
+         *flags])
+    options = {f.lstrip("-"): getattr(jargs, f.lstrip("-")) for f in flags[::2]}
+    want_path = _jax_convert(files, tmp_path, "jax.wav", **options)
+    want_said = capsys.readouterr().out
+    want, _ = read_wav(want_path)
+    assert np.abs(want).max() > 0.01
+
+    torch.manual_seed(0)
+    out = tmp_path / "out.wav"
+    assert cli.main(["infer", "--input_path", str(files / "in.wav"), "--output_path",
+                     str(out), "--pth_path", str(files / "model.pth"),
+                     "--index_path", str(files), *ARGS, *flags]) == 0
+    said = capsys.readouterr().out
+    got, sr = read_wav(str(out))
+    assert sr == 48000
+    # the option's float64 steps differ from numpy's in the last bits, which
+    # may move a sample across a 16-bit step of the WAV
+    np.testing.assert_allclose(got, want, rtol=0, atol=LSB)
+
+    src = tmp_path / "in"
+    src.mkdir()
+    (src / "in.wav").write_bytes((files / "in.wav").read_bytes())
+    torch.manual_seed(0)
+    assert cli.main(["batch_infer", "--input_folder", str(src), "--output_folder",
+                     str(tmp_path / "b"), "--pth_path", str(files / "model.pth"),
+                     "--index_path", str(files), *ARGS, *flags]) == 0
+    said += capsys.readouterr().out
+    got, _ = read_wav(str(tmp_path / "b" / "in_output.wav"))
+    np.testing.assert_allclose(got, want, rtol=0, atol=LSB)
+    if "--export_format" in flags:
+        line = f"ffmpeg unavailable; keeping WAV for requested {flags[-1]}"
+        assert line in want_said and said.count(line) == 2
+        assert sorted(p.name for p in (tmp_path / "b").iterdir()) == ["in_output.wav"]
+
+
+def test_flac_export_round_trips(files, tmp_path, monkeypatch):
+    """``--export_format FLAC`` writes, beside the WAV, the FLAC the JAX
+    package's ``_export`` writes from it, byte for byte; it reads back as
+    the WAV's samples."""
+    from rvc_tpu.infer.converter import VoiceConverter as JaxConverter
+    from rvc_tpu_torch import cli
+    from rvc_tpu_torch.utils.audio_io import read_wav
+    from rvc_tpu_torch.utils.native import flac_read
+
+    monkeypatch.chdir(tmp_path)
+    out = tmp_path / "out.wav"
+    assert cli.main(["infer", "--input_path", str(files / "in.wav"), "--output_path",
+                     str(out), "--pth_path", str(files / "model.pth"), *ARGS,
+                     "--export_format", "FLAC"]) == 0
+    wav, sr = read_wav(str(out))
+    flac, flac_sr = flac_read(str(tmp_path / "out.flac"))
+    assert flac_sr == sr == 48000 and flac.shape == wav.shape == (72000,)
+    np.testing.assert_array_equal(flac, wav)
+    (tmp_path / "jax").mkdir()
+    copy = tmp_path / "jax" / "out.wav"
+    copy.write_bytes(out.read_bytes())
+    assert JaxConverter._export(str(copy), "FLAC") == str(tmp_path / "jax" / "out.flac")
+    assert (tmp_path / "jax" / "out.flac").read_bytes() == (
+        tmp_path / "out.flac").read_bytes()
 
 
 def _infer_argv(parser):
