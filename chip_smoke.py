@@ -51,8 +51,8 @@ Phases, in this order, each printing one JSON line:
            small fp32 MRF HiFi-GAN and RefineGAN models on the card against
            the CPU; every discriminator family of the registry in training
            steps with the 48 kHz generator (bf16, batch 8); ``train`` with
-           MRF HiFi-GAN at 40 kHz (mpd,mrd; 2 epochs, a resume to 3) and
-           RefineGAN at 32 kHz (mpd,mssbcqt; 2 epochs), each trained model
+           MRF HiFi-GAN at 40 kHz (mpd,mrd; 1 epoch, a resume to 2) and
+           RefineGAN at 32 kHz (mpd,mssbcqt; 1 epoch), each trained model
            converting 10 s
   fx       the rest of the user's CLI: ``infer`` of 10 s with formant
            shifting, ``--clean_audio``, all ten effects and FLAC export
@@ -65,6 +65,22 @@ Phases, in this order, each printing one JSON line:
            ``model_blender`` with a second full-width seed,
            ``model_information``, a conversion with the blend,
            ``audio_analyzer``, ``check_environment``
+  dist     multi-card training and sharded serving on the one card:
+           ``parallel.launch`` at world 1 with NCCL (three full-width bf16
+           steps, batch 8) against the same steps without a process group;
+           two gloo ranks on the card (4 rows each, the ranks' mask sums
+           differing) against one process's batch of 8, the ranks' weights
+           equal bit for bit (correctness only: two ranks share the card);
+           ``enable_batch_sharding(["cuda:0", "cuda:0"])`` on the `batch`
+           files, four rows and three, against the unsharded batch
+  ui       the web UI (``rvc_tpu_torch.ui.app.build_app("cuda")``, the
+           stdlib renderer) on a free port, driven over ``POST
+           /api/<eid>``: a 10 s conversion against ``cli infer``, the batch
+           event, the blender, model information, the analyzer, the f0
+           curve, TTS (offline synthesizer) then conversion, the
+           drop-install of a zip, one training epoch on the `prep` filelist
+           and the index button (K3 at k = 1); the download server's GET
+           and POST
   kernels  hold each kernel against its plain PyTorch version at the shapes
            every path recorded (every stage tail, and every chain run on its
            own, at its leaky slope, RefineGAN's 0.2 too; forward, and at the
@@ -82,6 +98,7 @@ Phases, in this order, each printing one JSON line:
 
     python3 chip_smoke.py env,build,pipeline,kernels   # a subset of the phases
     python3 chip_smoke.py env,build,files,fx,kernels   # the output effects
+    python3 chip_smoke.py env,build,files,batch,prep,dist,ui,kernels  # A.13, A.16
     python3 chip_smoke.py env,build,unit   # the kernel checks alone, at the
                                            # serving shapes, without the models
 Then a ``{"kernels": [...]}`` line and, last, the result line
@@ -1723,8 +1740,9 @@ ZOO_MODELS = (("nsf32", "HiFi-GAN", 32000), ("nsf40", "HiFi-GAN", 40000),
 ZOO_FAMILIES = ("mpd_v1", "mrd", "msstft", "mssbcqt", "msd", "fregan_mpd", "mmsd")
 ZOO_FAMILY_STEPS = 3
 # (tag, vocoder, rate, discriminators, epochs of the first call, of the resume)
-ZOO_TRAININGS = (("mrf40", "MRF HiFi-GAN", 40000, "mpd,mrd", 2, 3),
-                 ("refinegan32", "RefineGAN", 32000, "mpd,mssbcqt", 2, None))
+# one epoch each (and a resume to 2): the whole script stays under 720 s
+ZOO_TRAININGS = (("mrf40", "MRF HiFi-GAN", 40000, "mpd,mrd", 1, 2),
+                 ("refinegan32", "RefineGAN", 32000, "mpd,mssbcqt", 1, None))
 
 
 def _zoo_launch_ok(vocoder: str, counts: dict) -> bool:
@@ -1967,8 +1985,8 @@ def _zoo_families(smi: str):
 
 def _zoo_trainings(smi: str, files: dict, root: str, rng):
     """``train`` through the CLI at full width with MRF HiFi-GAN at 40 kHz
-    (mpd + mrd, 2 epochs, then a resume to 3) and RefineGAN at 32 kHz (mpd
-    + mssbcqt, 2 epochs), each on 40 clips at its rate: per step finite
+    (mpd + mrd, 1 epoch, then a resume to 2) and RefineGAN at 32 kHz (mpd
+    + mssbcqt, 1 epoch), each on 40 clips at its rate: per step finite
     losses and the decoder's K1/K2 launches, every G and D group's gradient
     after step 1, the resume, and the exported deployable .pth converting
     10 s to finite audio of the right length."""
@@ -2694,6 +2712,525 @@ def phase_prep(smi: str, root: str, files: dict):
     return counts, shapes
 
 
+DIST_STEPS = 3
+# the global batch's lengths in frames: the last four rows (rank 1's at
+# world 2) are shorter, so the ranks' mask sums differ
+DIST_LENGTHS = (40, 40, 38, 36, 32, 30, 28, 26)
+DIST_LR = 1e-4
+LSB16 = 1.0 / 32767  # one step of a 16-bit sample, as the WAVs hold them
+# a sharded fp32 row's largest distance from its unsharded row, as a share
+# of the smallest largest distance between two neighbouring unsharded rows
+SHARD_ROWS_SHARE = 0.1
+
+
+def _dist_steps(rank: int, world: int, n_steps: int, save_dir=None, ref_dir=None):
+    """Full-width 48 kHz bf16 training steps (the NSF generator from seed 11,
+    the full MPD, AdamW at ``DIST_LR``, cuDNN's autotuning off and its
+    algorithms deterministic) on this rank's rows of a global batch of 8
+    (``_zoo_batch`` with ``DIST_LENGTHS``), slice starts and noise from
+    seed 12. Per step: ms, metrics (the first step's also with the norm of
+    each group of summed gradients, ``gsub_*``), the weights' bit fingerprint
+    and, with ``ref_dir``, the largest difference to the weights saved there
+    by a run with ``save_dir``; the launch counts and the shapes the kernels
+    saw."""
+    import dataclasses
+
+    import torch
+
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
+    from rvc_tpu_torch.models.synthesizer import Synthesizer
+    from rvc_tpu_torch.parallel import shard_rows
+    from rvc_tpu_torch.train.optimizers import module_optimizer
+    from rvc_tpu_torch.train.step import TrainStep
+    from rvc_tpu_torch.train.trainer import init_parameters
+
+    switches = _cuda_switches()
+    _cuda_switches([False, False, False, True])
+    cfg = get_config(48000)
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=TRAIN_BATCH, segment_size=TRAIN_SEGMENT, bf16_run=True))
+    gen = torch.Generator().manual_seed(11)
+    g = Synthesizer.from_config(cfg, device="cuda", train=True)
+    d = MultiPeriodDiscriminator(use_spectral_norm=cfg.model.use_spectral_norm).cuda()
+    init_parameters(g, gen)
+    init_parameters(d, gen)
+    step = TrainStep(cfg, g, d, module_optimizer("adamw", g, DIST_LR),
+                     module_optimizer("adamw", d, DIST_LR))
+    batch = _zoo_batch(TRAIN_BATCH, 40, "cuda")
+    batch["phone_lengths"] = batch["spec_lengths"] = torch.tensor(
+        DIST_LENGTHS, dtype=torch.int32, device="cuda")
+    batch = shard_rows(batch, rank, world)
+    params = [p for m in (g, d) for p in m.parameters()]
+    sgen = torch.Generator().manual_seed(12)
+    out = {"rank": rank, "world": world, "rows": int(batch["phone"].shape[0]),
+           "mask_frames": int(batch["spec_lengths"].sum()), "ms": [], "metrics": [],
+           "fingerprint": [], "max_abs_diff": []}
+
+    def run():
+        for i in range(n_steps):
+            torch.cuda.synchronize()
+            step.debug_grads = i == 0
+            t0 = time.perf_counter()
+            m = step(batch, sgen)
+            torch.cuda.synchronize()
+            out["ms"].append(1e3 * (time.perf_counter() - t0))
+            out["metrics"].append({k: float(v) for k, v in m.items()})
+            flat = torch.cat([p.detach().reshape(-1) for p in params])
+            out["fingerprint"].append(int(flat.view(torch.int32).to(torch.int64).sum()))
+            if save_dir is not None:
+                torch.save(flat.cpu(), os.path.join(save_dir, f"step{i}.pt"))
+            if ref_dir is not None:
+                ref = torch.load(os.path.join(ref_dir, f"step{i}.pt")).cuda()
+                out["max_abs_diff"].append(float((flat - ref).abs().max()))
+                del ref
+            del flat
+
+    _reset_counts()
+    grad_shapes = []
+    shapes = record_path_shapes(run, grad_shapes)
+    out["launches"] = _counts()
+    out["shapes"], out["grad_shapes"] = (
+        [[str(v).split(".")[-1] if isinstance(v, torch.dtype) else v for v in sh]
+         for sh in s] for s in (shapes, grad_shapes))
+    _cuda_switches(switches)
+    del step, g, d, batch, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _dist_rank(rank: int, device: str, world: int, n_steps: int, ref_dir: str,
+               out_prefix: str) -> None:
+    """One rank of ``parallel.launch``: ``_dist_steps`` against the plain
+    run's weights, its record in ``<out_prefix>_<rank>.json``."""
+    import torch.distributed as dist
+
+    rec = _dist_steps(rank, world, n_steps, ref_dir=ref_dir)
+    rec["backend"] = dist.get_backend()
+    with open(f"{out_prefix}_{rank}.json", "w") as f:
+        json.dump(rec, f)
+
+
+def _dist_check(name: str, ref: dict, got: dict, steps: int) -> dict:
+    """A distributed run's steps against the plain run's: losses within 5e-3
+    and gradient norms (the global ones of every step, each group's of the
+    first) within 1e-1 of them, the bf16 tolerances of the `small_train`
+    phase."""
+    worst = {"loss_rel": 0.0, "norm_rel": 0.0}
+    for i in range(steps):
+        r, m = ref["metrics"][i], got["metrics"][i]
+        require(m.keys() == r.keys(), f"dist {name} step {i}: metrics {sorted(m)}")
+        for k, v in r.items():
+            rel = abs(m[k] - v) / max(abs(v), 1e-3)
+            kind = "norm_rel" if k.startswith(("grad_norm", "gsub_")) else "loss_rel"
+            worst[kind] = max(worst[kind], rel)
+    require(worst["loss_rel"] <= 5e-3 and worst["norm_rel"] <= 1e-1,
+            f"dist {name}: {worst} from the plain run")
+    return worst
+
+
+def phase_dist(smi: str, files: dict, root: str):
+    """A.13 on one card. (a) ``parallel.launch`` at world 1 with NCCL on
+    cuda:0: ``DIST_STEPS`` full-width training steps against the same
+    steps in this process without a process group (an all-reduce over one
+    rank is the identity): ms per step of both. (b) two gloo ranks on the
+    one card, 4 rows each (rank 1's rows shorter, so the mask sums differ):
+    two steps against the plain run's first two, the ranks' weights equal
+    bit for bit. NCCL refuses two ranks on one device, and the two ranks
+    share the card, so (b) checks the sums and says nothing of scaling.
+    (c) ``enable_batch_sharding(["cuda:0", "cuda:0"])``: the `batch`
+    files through ``convert_audio_batch`` (four rows, then three: one pad
+    row) against the unsharded batch: in fp32 (TF32 off) within one 16-bit
+    step, in bf16 too; the warm walls of both."""
+    import torch
+
+    from rvc_tpu_torch.infer.converter import VoiceConverter
+    from rvc_tpu_torch.parallel import launch
+    from rvc_tpu_torch.utils.audio_io import read_wav
+
+    t_start = time.perf_counter()
+    ref_dir = os.path.join(root, "dist_ref")
+    os.makedirs(ref_dir)
+    plain = _dist_steps(0, 1, DIST_STEPS, save_dir=ref_dir)
+    res, launches, shapes, grad_uses = {}, collections.Counter(), [], {}
+
+    def add(rec, steps):
+        launches.update(rec["launches"])
+        shapes.extend(tuple(s) for s in rec["shapes"])
+        for k, n in collections.Counter(_shape_key(s) for s in rec["grad_shapes"]).items():
+            grad_uses[k] = max(grad_uses.get(k, 0.0), n / steps)
+
+    for tag, devices, backend, steps in (("nccl_world1", ["cuda:0"], "nccl", DIST_STEPS),
+                                         ("gloo_two_ranks", ["cuda:0", "cuda:0"], "gloo", 2)):
+        prefix = os.path.join(root, f"dist_{tag}")
+        t0 = time.perf_counter()
+        rc = launch(_dist_rank, devices, backend,
+                    (len(devices), steps, ref_dir, prefix))
+        wall = time.perf_counter() - t0
+        require(rc == 0, f"dist {tag}: launch returned {rc}")
+        ranks = []
+        for r in range(len(devices)):
+            with open(f"{prefix}_{r}.json") as f:
+                ranks.append(json.load(f))
+        for rec in ranks:
+            require(rec["launches"]["mrf_stage"] > 0 and rec["launches"]["resblock_chain"] > 0,
+                    f"dist {tag} rank {rec['rank']}: K1/K2 not launched {rec['launches']}")
+            add(rec, steps)
+        require(all(rec["fingerprint"] == ranks[0]["fingerprint"] for rec in ranks),
+                f"dist {tag}: the ranks' weights differ")
+        require(all(rec["metrics"] == ranks[0]["metrics"] for rec in ranks),
+                f"dist {tag}: the ranks' metrics differ")
+        worst = _dist_check(tag, plain, ranks[0], steps)
+        if tag == "nccl_world1":  # a sum over one rank is the identity
+            require(not any(ranks[0]["max_abs_diff"]),
+                    f"dist {tag}: weights {ranks[0]['max_abs_diff']} from the plain run")
+        res[tag] = {"backend": ranks[0]["backend"], "ranks": len(devices),
+                    "rows_per_rank": ranks[0]["rows"],
+                    "mask_frames_by_rank": [rec["mask_frames"] for rec in ranks],
+                    "ms_per_step_by_rank": [rec["ms"] for rec in ranks],
+                    "max_abs_diff_vs_plain": ranks[0]["max_abs_diff"],
+                    "bitwise_equal_to_plain": [fp == p for fp, p in zip(
+                        ranks[0]["fingerprint"], plain["fingerprint"])],
+                    "worst_rel_vs_plain": worst, "launch_wall_s": wall,
+                    "launches": [rec["launches"] for rec in ranks]}
+    res["gloo_two_ranks"]["note"] = (
+        "two ranks on one card: correctness of the gradient sums only, not scaling")
+    add(plain, DIST_STEPS)
+
+    # (c) sharded batch serving, two replicas on the one card, against the
+    # unsharded batch within one 16-bit step in fp32 (TF32 off) and in bf16,
+    # the serving precision; the files' lengths differ, so a row out of
+    # order fails the shape check
+    src, _ = _batch_files(root)
+    src3 = os.path.join(root, "dist_in3")
+    os.makedirs(src3)
+    for name in ("a", "b", "c"):
+        shutil.copy(os.path.join(src, f"{name}.wav"), src3)
+    kw = dict(model_path=files["pth"], index_path=files["index"], f0_method="rmvpe",
+              index_rate=0.75, protect=0.33, pitch=2)
+    cwd = os.getcwd()
+    os.chdir(root)
+    walls, diffs, counts, shard_shapes = {}, {}, {}, []
+    rows, current = {}, [None]  # the model's rows of each batch, before the files
+    switches = _cuda_switches()
+    try:
+        for precision in ("fp32", "bf16"):
+            _cuda_switches([False, False] + switches[2:])
+            vc = VoiceConverter(precision=precision)
+
+            def batch(folder, out):
+                current[0] = f"{precision}/{out}"
+                t0 = time.perf_counter()
+                vc.convert_audio_batch(folder, os.path.join(root, f"{out}_{precision}"), **kw)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+
+            batch(src, "dist_warm")
+            seg_batch = vc.pipeline.convert_segments_batch
+
+            def captured(*a, seg_batch=seg_batch, **k):
+                outs = seg_batch(*a, **k)
+                rows.setdefault(current[0], []).extend(np.array(o, np.float64) for o in outs)
+                return outs
+
+            vc.pipeline.convert_segments_batch = captured
+            reps = (0, 1) if precision == "bf16" else (0,)  # bf16: the serving walls
+            walls[precision] = {"unsharded_4": [batch(src, f"dist_plain4_{i}") for i in reps],
+                                "unsharded_3": batch(src3, "dist_plain3")}
+            vc.pipeline.enable_batch_sharding(["cuda:0", "cuda:0"])
+            require(len(vc.pipeline._replicas) == 2, "enable_batch_sharding made no replicas")
+            _reset_counts()
+            shard_shapes += record_path_shapes(lambda: batch(src, "dist_shard4_0"))
+            shard_shapes += record_path_shapes(lambda: batch(src3, "dist_shard3"))
+            for k, c in _counts().items():
+                counts[k] = counts.get(k, 0) + c
+            if precision == "bf16":
+                walls[precision]["sharded_4"] = [batch(src, f"dist_shard4_{i}")
+                                                 for i in (1, 2)]
+            del vc
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        _cuda_switches(switches)
+        os.chdir(cwd)
+    peaks, rows_apart, float_diff, float_apart = {}, {}, {}, {}
+    for precision in ("fp32", "bf16"):
+        for plain_dir, shard_dir, names in (("dist_plain4_0", "dist_shard4_0", "abcd"),
+                                            ("dist_plain3", "dist_shard3", "abc")):
+            outs = {}
+            for n in names:
+                a, _ = read_wav(os.path.join(root, f"{plain_dir}_{precision}", f"{n}_output.wav"))
+                b, _ = read_wav(os.path.join(root, f"{shard_dir}_{precision}", f"{n}_output.wav"))
+                require(a.shape == b.shape, f"sharded {n}: {b.shape} != {a.shape}")
+                key = f"{precision}/{shard_dir}/{n}"
+                diffs[key] = float(np.abs(a - b).max()) / LSB16
+                peaks[key] = float(np.abs(a).max()) / LSB16
+                outs[n] = a
+            for x, y in zip(names, names[1:]):
+                t = min(len(outs[x]), len(outs[y]))
+                rows_apart[f"{precision}/{shard_dir}/{x}{y}"] = float(
+                    np.abs(outs[x][:t] - outs[y][:t]).max()) / LSB16
+    # fp32's rows as the model gives them, before the 16-bit files: each
+    # sharded row against its unsharded row, and neighbouring unsharded rows
+    # against each other (this random-weight model's rows differ by about
+    # one 16-bit step, so the files alone cannot tell a row from another)
+    for plain_dir, shard_dir, names in (("dist_plain4_0", "dist_shard4_0", "abcd"),
+                                        ("dist_plain3", "dist_shard3", "abc")):
+        p, q = rows.get(f"fp32/{plain_dir}", []), rows.get(f"fp32/{shard_dir}", [])
+        require(len(p) == len(q) == len(names),
+                f"sharded {shard_dir}: {len(q)} rows against {len(p)}, not {len(names)}")
+        for n, a, b in zip(names, p, q):
+            require(a.shape == b.shape, f"sharded {n}: rows {b.shape} != {a.shape}")
+            float_diff[f"{shard_dir}/{n}"] = float(np.abs(a - b).max())
+        for x, a, b in zip(names, p, p[1:]):
+            t = min(len(a), len(b))
+            float_apart[f"{shard_dir}/{x}"] = float(np.abs(a[:t] - b[:t]).max())
+    res["sharded_batch"] = {"replicas": ["cuda:0", "cuda:0"], "walls_s": walls,
+                            "max_diff_16bit_steps": diffs, "limit_16bit_steps": 1.0,
+                            "unsharded_peak_16bit_steps": peaks,
+                            "neighbour_rows_max_diff_16bit_steps": rows_apart,
+                            "fp32_rows_max_abs_diff": float_diff,
+                            "fp32_neighbour_rows_max_abs_diff": float_apart,
+                            "fp32_rows_limit": f"{SHARD_ROWS_SHARE} of the closest neighbours",
+                            "launches": counts}
+    launches.update(counts)
+    shapes += shard_shapes
+    emit({"phase": "dist", "gpu": smi, "plain_ms_per_step": plain["ms"],
+          "plain_metrics_last": plain["metrics"][-1], "wall_s": time.perf_counter() - t_start,
+          **res})
+    for name, c in counts.items():
+        require(c > 0, f"kernel {name} was not launched by the sharded batch")
+    for precision in ("fp32", "bf16"):
+        worst = max(v for k, v in diffs.items() if k.startswith(precision))
+        require(worst <= 1.0 + 1e-3,
+                f"sharded batch ({precision}): {worst} 16-bit steps from the unsharded")
+        # the one-step limit holds something only where the output is not
+        # silent: every row peaks well above it
+        quiet = min(v for k, v in peaks.items() if k.startswith(precision))
+        require(quiet >= 8.0, f"sharded batch ({precision}): a row peaks at {quiet} steps")
+    require(max(float_diff.values()) <= SHARD_ROWS_SHARE * min(float_apart.values()),
+            f"sharded batch (fp32): rows {float_diff} from the unsharded, "
+            f"neighbours {float_apart} apart")
+    return dict(launches), shapes, grad_uses
+
+
+def _ui_event(app, button: str, nth: int = 0):
+    """The ``nth`` click event of the button that reads ``button``: (its
+    id, its input components)."""
+    from rvc_tpu_torch.ui import gradio_lite
+
+    hits = [ev for ev in app.event_list if ev.trigger == "click"
+            and getattr(gradio_lite._ev_src(app, ev), "value", None) == button]
+    require(len(hits) > nth, f"ui: no click event of {button!r} #{nth}")
+    return hits[nth].eid, hits[nth].inputs
+
+
+def _ui_post(base: str, eid: int, data: list, timeout_s: float = 900.0):
+    """``POST /api/<eid>`` with the inputs' values: (the output patches,
+    the wall seconds)."""
+    import urllib.request
+
+    req = urllib.request.Request(f"{base}/api/{eid}", data=json.dumps({"data": data}).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout_s) as r:
+        out = json.loads(r.read())
+    return out["data"], time.perf_counter() - t0
+
+
+UI_TRAIN_ROWS = 40  # the `prep` filelist's first rows: the UI's epoch cut to ~5 steps
+
+
+def _ui_values(inputs, over: dict) -> list:
+    """The inputs' current values, those at the positions of ``over``
+    replaced by its values."""
+    return [over.get(i, c.value) for i, c in enumerate(inputs)]
+
+
+def phase_ui(smi: str, files: dict, root: str):
+    """A.16 on the card: the app of ``rvc_tpu_torch.ui.app.build_app("cuda")``
+    with the stdlib ``gradio_lite`` renderer, launched on a free port, and
+    driven as a browser drives it, over ``POST /api/<eid>``: the inference
+    tab's conversion of 10 s with the `files` model and index (against
+    ``cli infer`` with the same settings, within one 16-bit step; cold and
+    warm walls beside the CLI's), its batch event on the `batch` files, the
+    blender, the model information, the analyzer and the f0 extractor, TTS
+    through the offline synthesizer then conversion, the drop-install of a
+    zip of the .pth and .index, the training tab for one epoch on the first
+    ``UI_TRAIN_ROWS`` rows of the `prep` phase's filelist (its features and
+    the `prep` phase's 360 000 rows under ``extracted/``: the index
+    compresses, K3 at k = 1) and its index button. Then the download server: ``GET /download/file://<zip>`` and
+    ``POST /shutdown``."""
+    import importlib.util
+    import urllib.request
+    import zipfile
+
+    import torch
+
+    from rvc_tpu_torch.parallel.mesh import free_port
+    from rvc_tpu_torch.ui import app as ui_app
+    from rvc_tpu_torch.ui import gradio_lite
+    from rvc_tpu_torch.ui import tabs as ui_tabs
+    from rvc_tpu_torch.utils.audio_io import read_wav, write_wav
+    from rvc_tpu_torch.utils.http_server import start_download_server
+
+    require(shutil.which("edge-tts") is None and importlib.util.find_spec("edge_tts") is None,
+            "edge-tts is installed: the TTS event would reach for the network")
+    t_start = time.perf_counter()
+    wav10 = os.path.join(root, "ui_in.wav")
+    write_wav(wav10, _audio(10.0, np.random.default_rng(31)), 16000)
+    src, lengths = _batch_files(root)
+    exp = os.path.join(root, "logs", "ui_train")
+    os.makedirs(os.path.join(exp, "extracted"))
+    with open(os.path.join(root, "logs", "prep", "filelist.txt")) as f:
+        rows = f.read().strip().split("\n")
+    with open(os.path.join(exp, "filelist.txt"), "w") as f:  # one epoch of a few steps
+        f.write("\n".join(rows[:UI_TRAIN_ROWS]) + "\n")
+    for model in ("prep", "big"):
+        feat_dir = os.path.join(root, "logs", model, "extracted")
+        for f in os.listdir(feat_dir):
+            os.symlink(os.path.join(feat_dir, f), os.path.join(exp, "extracted", f"{model}_{f}"))
+    bundle = os.path.join(root, "ui_voice.zip")
+    with zipfile.ZipFile(bundle, "w") as z:
+        z.write(files["pth"], "ui_voice.pth")
+        z.write(files["index"], "ui_voice.index")
+    other = os.path.join(root, "model_b.pth")
+    other = other if os.path.exists(other) else files["pth"]
+    with open(os.path.join(root, "logs", "ui_config.json"), "w") as f:
+        json.dump({"language": "en_US", "precision": "bf16"}, f)  # the buttons' words
+    res, walls = {}, {}
+    cwd = os.getcwd()
+    os.chdir(root)
+    real_gradio, ui_app._require_gradio = ui_app._require_gradio, lambda: gradio_lite
+    app = None
+    try:
+        t0 = time.perf_counter()
+        app = ui_app.build_app("cuda")
+        walls["build_app"] = time.perf_counter() - t0
+        app.launch(server_name="127.0.0.1", server_port=0, prevent_thread_lock=True)
+        base = f"http://127.0.0.1:{app.server.server_address[1]}"
+        with urllib.request.urlopen(f"{base}/config", timeout=30) as r:
+            cfg = json.loads(r.read())
+        res["components"], res["events"] = len(cfg["components"]), len(cfg["events"])
+
+        def drive():
+            eid, ins = _ui_event(app, "Convert", 0)
+            data = _ui_values(ins, {0: wav10, 1: files["pth"], 2: files["index"], 3: 0,
+                                    4: "", 5: ""})
+            outs = []
+            for i in range(2):  # cold (the models load), then warm
+                patch, walls[f"convert_{i}"] = _ui_post(base, eid, data)
+                outs.append(patch[0]["value"])
+            res["convert_out"] = outs
+            eid, ins = _ui_event(app, "Convert", 1)
+            patch, walls["batch"] = _ui_post(base, eid, _ui_values(
+                ins, {0: src, 1: os.path.join(root, "ui_batch"), 2: files["pth"],
+                      3: files["index"], 4: 0, 5: ""}))
+            res["batch"] = patch[0]["value"]
+            eid, ins = _ui_event(app, "Fusion")
+            patch, walls["blend"] = _ui_post(base, eid, ["ui_blend", files["pth"], other, 0.5])
+            res["blend"] = patch[0]["value"]
+            eid, ins = _ui_event(app, "Get model information")
+            patch, walls["model_information"] = _ui_post(base, eid, [res["blend"]])
+            res["model_information"] = patch[0]["value"]
+            eid, ins = _ui_event(app, "Get information about the audio")
+            patch, walls["analyzer"] = _ui_post(base, eid, [outs[0]])
+            res["analyzer"] = json.loads(patch[0]["value"])
+            eid, ins = _ui_event(app, "Extract F0 Curve")
+            patch, walls["f0_curve"] = _ui_post(base, eid, [wav10, "rmvpe", False])
+            res["f0_plot"] = patch[0]["value"]
+            eid, ins = _ui_event(app, "Convert", 2)
+            patch, walls["tts"] = _ui_post(base, eid, _ui_values(
+                ins, {0: "a short sentence for the voice", 1: "en-US-AriaNeural", 2: 0,
+                      3: files["pth"]}))
+            res["tts_out"] = patch[0]["value"]
+            (drop,) = [ev for ev in app.event_list if ev.trigger == "upload"]
+            patch, walls["drop_install"] = _ui_post(base, drop.eid, [bundle])
+            res["drop_install"] = patch[0]["value"]
+            eid, ins = _ui_event(app, "Start Training")
+            patch, _ = _ui_post(base, eid, _ui_values(ins, {0: "ui_train", 3: 1}))
+            res["train_started"] = patch[0]["value"]
+            t0 = time.perf_counter()
+            thread = ui_tabs._TRAIN_THREAD["thread"]
+            thread.join(900)
+            walls["train"] = time.perf_counter() - t0
+            require(not thread.is_alive() and ui_tabs._TRAIN_THREAD["error"] is None,
+                    f"ui training: {ui_tabs._TRAIN_THREAD['error']}")
+            eid, ins = _ui_event(app, "Generate Index")
+            before = _counts()["knn_topk"]
+            patch, walls["index"] = _ui_post(base, eid, ["ui_train"])
+            res["index"], res["index_knn_launches"] = patch[0]["value"], \
+                _counts()["knn_topk"] - before
+
+        _reset_counts()
+        shapes = record_path_shapes(drive)
+        counts = _counts()
+        torch.cuda.synchronize()
+    finally:
+        ui_app._require_gradio = real_gradio
+        if app is not None and getattr(app, "server", None) is not None:
+            app.close()
+        os.chdir(cwd)
+    for name, c in counts.items():
+        require(c > 0, f"kernel {name} was not launched by the UI")
+
+    # the inference event against the CLI with the same settings
+    cli_out = os.path.join(root, "ui_cli.wav")
+    walls["cli_infer"] = _cli(["infer", "--input_path", wav10, "--output_path", cli_out,
+                               "--pth_path", files["pth"], "--index_path", files["index"]],
+                              root)
+    want, sr = read_wav(cli_out)
+    res["convert_vs_cli_16bit_steps"] = []
+    for out in res["convert_out"]:
+        got, sr_ui = read_wav(os.path.join(root, out))
+        require(sr_ui == sr == 48000 and got.shape == want.shape,
+                f"ui convert {got.shape} at {sr_ui} Hz, cli {want.shape} at {sr} Hz")
+        res["convert_vs_cli_16bit_steps"].append(float(np.abs(got - want).max()) / LSB16)
+    require(max(res["convert_vs_cli_16bit_steps"]) <= 1.0 + 1e-3,
+            f"ui convert vs cli: {res['convert_vs_cli_16bit_steps']} 16-bit steps")
+    for name in lengths:  # as long as the `batch` phase's outputs of the files
+        got, _ = read_wav(os.path.join(root, "ui_batch", f"{name}_output.wav"))
+        want_n = read_wav(os.path.join(root, "b1", f"{name}_output.wav"))[0].shape
+        require(got.shape == want_n and np.isfinite(got).all(), f"ui batch {name}: {got.shape}")
+    tts, _ = read_wav(os.path.join(root, res["tts_out"]))
+    require(tts.size > 48000 and np.isfinite(tts).all(), f"ui tts output {tts.shape}")
+    require(os.path.exists(os.path.join(root, "logs", "ui_blend.pth")), "ui blend not written")
+    require("parameters: " in res["model_information"],
+            f"ui model information: {res['model_information'][-300:]}")
+    res["model_information"] = res["model_information"][-200:]
+    require(all(np.isfinite(v) for v in res["analyzer"].values()
+                if isinstance(v, (int, float))), f"ui analyzer: {res['analyzer']}")
+    require(os.path.exists(os.path.join(root, "logs", "ui_voice", "ui_voice.pth")),
+            f"ui drop install: {res['drop_install']}")
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        (epoch,) = [r for r in map(json.loads, f) if "epoch/epoch_seconds" in r]
+    require(epoch["step"] > 0 and os.path.exists(os.path.join(exp, "G_1.pth")),
+            f"ui training: {epoch}")
+    require(res["index_knn_launches"] == 25, f"ui index: K3 {res['index_knn_launches']} times")
+
+    # the download server
+    port = free_port()
+    srv = start_download_server(port=port)
+    os.chdir(root)
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/download/file://{bundle}",
+                                    timeout=60) as r:
+            res["download_server"] = r.read().decode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/shutdown", method="POST")
+        with urllib.request.urlopen(req, timeout=30) as r:
+            require(r.status == 200, "download server: /shutdown")
+    finally:
+        os.chdir(cwd)
+        srv.shutdown()
+        srv.server_close()
+    require(res["download_server"].startswith("downloaded to"), res["download_server"])
+    emit({"phase": "ui", "gpu": smi, "walls_s": walls, "launches": counts,
+          "train_epoch": {k: v for k, v in epoch.items() if not k.startswith("epoch/avg/")},
+          "wall_s": time.perf_counter() - t_start, **res})
+    return counts, shapes
+
+
 def _cuda_switches(values=None):
     """The CUDA switches the ``train`` CLI sets as the reference does (TF32,
     cuDNN autotuning and determinism): their values, or set them back."""
@@ -2762,7 +3299,7 @@ def main(argv) -> int:
         return 2
     phases = argv[1].split(",") if len(argv) > 1 else [
         "env", "build", "small", "pipeline", "stream", "files", "windowed", "batch",
-        "nof0", "train", "prep", "zoo", "fx", "kernels", "stages"]
+        "nof0", "train", "prep", "zoo", "fx", "dist", "ui", "kernels", "stages"]
     sys.path.insert(0, REPO)
     import rvc_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -2774,8 +3311,10 @@ def main(argv) -> int:
     counts, rec, launches, path_shapes = {}, {}, {}, {}
     if "unit" in phases:
         phase_kernels({"unit": UNIT_SHAPES})
-    user_paths = [p for p in ("windowed", "batch", "nof0", "prep", "zoo", "fx")
-                  if p in phases]
+    user_paths = [p for p in ("windowed", "batch", "nof0", "prep", "zoo", "fx", "dist",
+                              "ui") if p in phases]
+    require("ui" not in phases or {"batch", "prep"} <= set(phases),
+            "phase ui needs the batch and prep phases' files")
     root = tempfile.mkdtemp(prefix="rvc_chip_smoke_")
     try:
         if "pipeline" in phases:
@@ -2785,7 +3324,8 @@ def main(argv) -> int:
                 phase_stream(pipe, audio, index, smi)
         if "files" in phases or user_paths:
             files = phase_files(smi, root)
-            for name in (p for p in user_paths if p not in ("prep", "zoo", "fx")):
+            for name in (p for p in user_paths
+                         if p not in ("prep", "zoo", "fx", "dist", "ui")):
                 phase = {"windowed": phase_windowed, "batch": phase_batch,
                          "nof0": phase_nof0}[name]
                 launches[name], path_shapes[name] = phase(smi, files, root)
@@ -2808,6 +3348,14 @@ def main(argv) -> int:
                 grad_uses.setdefault(k, {}).update(runs)
         if "fx" in phases:
             launches["fx"], path_shapes["fx"] = phase_fx(smi, files, root)
+        if "dist" in phases:
+            launches["dist"], path_shapes["dist"], d_uses = phase_dist(smi, files, root)
+            for k, n in d_uses.items():
+                grad_uses.setdefault(k, {})["dist"] = n
+        if "ui" in phases:
+            switches = _cuda_switches()
+            launches["ui"], path_shapes["ui"] = phase_ui(smi, files, root)
+            _cuda_switches(switches)  # the UI's training sets the CLI's switches
         if "kernels" in phases and path_shapes:  # at the shapes the paths gave
             rec = phase_kernels(path_shapes, grad_uses or None).get("pipeline", {})
         if "pipeline" in phases and "stages" in phases:

@@ -22,6 +22,11 @@
     python -m rvc_tpu_torch.cli tensorboard [--logdir logs --port 9000]
     python -m rvc_tpu_torch.cli audio_analyzer --input_path out.wav \\
         [--save_plot_path report.png --device cuda]
+    python -m rvc_tpu_torch.cli tts --tts_text "hello" --tts_voice en-US-AriaNeural \\
+        --output_tts_path tts.wav --output_rvc_path out.wav --pth_path model.pth
+    python -m rvc_tpu_torch.cli download --model_link file:///path/model.zip
+    python -m rvc_tpu_torch.cli prerequisites [--models True --exe True \\
+        --prime_cache 1-10]
 
 The dataset commands run from the directory that holds ``logs/`` and write
 into ``logs/<model_name>/``: ``preprocess`` the sliced WAVs, ``extract``
@@ -31,11 +36,20 @@ and, at its end, the index, as ``index`` does. ``infer`` and
 spectral gate (``--clean_audio``) and the ten-effect post-FX chain on the
 card, and export to WAV, FLAC, or MP3 / OGG / M4A through ``ffmpeg`` when
 it is on ``PATH``. ``model_blender`` writes ``logs/<model_name>.pth``. The
-parser is the port's own copy of the JAX CLI's argument surface for these
-subcommands, flag for flag, so that a command line written for it parses
-unchanged; ``--device`` (default ``cuda``) is added. Training's
-``--use_orbax`` and several ``--gpu`` indices raise
-``NotImplementedError``. Every vocoder (``--vocoder "HiFi-GAN" | "MRF
+parser is the port's own copy of the JAX CLI's argument surface, flag for
+flag, so that a command line written for it parses unchanged; ``--device``
+(default ``cuda``) is added. ``train --gpu 0-1`` trains on those cards, one
+process each (``parallel.launch``), with ``--batch_size`` the global batch
+split evenly over them (as JAX's one-host mesh splits it; the reference's
+was per card); with ``--device cpu`` it runs that many CPU processes.
+Training's ``--use_orbax`` raises ``NotImplementedError``. ``batch_infer``
+on a machine with several cards, and ``--device cuda`` without an index,
+shards each device batch over them. ``tts`` speaks through edge-tts or,
+without it, the offline synthesizer, then converts; ``download`` installs
+a model from a path, a ``file://`` URL or a link; ``prerequisites`` fetches
+the missing predictor and pretrained files, builds the native audio engine
+(``--exe``) and, with ``--prime_cache``, the three kernel libraries. Every
+vocoder (``--vocoder "HiFi-GAN" | "MRF
 HiFi-GAN" | RefineGAN``) trains and converts, at 32, 40 and 48 kHz, and
 ``--discriminators`` takes any comma list of the JAX registry's names.
 ``main(argv)`` returns the exit code.
@@ -214,7 +228,8 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
                    help="export the deployable weights file on every save "
                         "epoch (final epoch always exports)")
     p.add_argument("--gpu", type=str, default="",
-                   help="dash-separated card indices (the port trains on one)")
+                   help="dash-separated card indices: one process on each "
+                        "(with --device cpu, that many CPU processes)")
     p.add_argument("--use_tf32", type=_bool, default=False,
                    help="TensorFloat-32 in float32 matmuls and convolutions")
     p.add_argument("--use_benchmark", type=_bool, default=True,
@@ -224,6 +239,35 @@ def _add_train_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to train on (the card by default; "
                         "'cpu' runs the kernels' plain versions)")
+
+
+def _add_tts_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--tts_text", type=str, default=None,
+                   help="text to speak (or use --input_path)")
+    p.add_argument("--tts_voice", type=str, required=True)
+    p.add_argument("--tts_rate", type=int, default=0)
+    p.add_argument("--input_path", "--tts_file", dest="input_path", type=str,
+                   default=None, help="a text file instead of --tts_text "
+                                      "(reference name: --tts_file)")
+    p.add_argument("--output_tts_path", type=str, required=True)
+    p.add_argument("--output_rvc_path", type=str, required=True)
+    _add_infer_args(p)
+
+
+def _add_prerequisites_args(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--models", type=_bool, default=True,
+                   help="fetch the missing predictors (rmvpe.pt, fcpe.pt)")
+    p.add_argument("--pretraineds_hifigan", type=_bool, default=True,
+                   help="fetch the missing default HiFi-GAN pretrains")
+    p.add_argument("--exe", type=_bool, default=True,
+                   help="reference: fetch ffmpeg.exe; here: build the native "
+                        "audio engine")
+    p.add_argument("--prime_cache", default="",
+                   help="any value: build the three CUDA kernel libraries now "
+                        "(nvcc), so that the first conversion does not wait for "
+                        "them. Eager PyTorch has no graph to compile ahead, so "
+                        "the JAX CLI's list of file lengths in seconds is "
+                        "accepted and not used")
 
 
 def _add_preprocess_args(p: argparse.ArgumentParser) -> None:
@@ -289,6 +333,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--input_folder", type=str, required=True)
     p.add_argument("--output_folder", type=str, required=True)
     _add_infer_args(p)
+    p = sub.add_parser("tts", help="Text-to-speech then voice conversion")
+    _add_tts_args(p)
     p = sub.add_parser("preprocess", help="Preprocess a dataset")
     _add_preprocess_args(p)
     p = sub.add_parser("extract", help="Extract F0 + content features")
@@ -307,6 +353,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("tensorboard", help="Launch metric dashboard")
     p.add_argument("--logdir", type=str, default="logs")
     p.add_argument("--port", type=int, default=9000)
+    p = sub.add_parser("download", help="Download a model from a link")
+    p.add_argument("--model_link", type=str, required=True)
+    p = sub.add_parser("prerequisites", help="Fetch predictor/pretrain assets")
+    _add_prerequisites_args(p)
     p = sub.add_parser("audio_analyzer", help="Analyze an audio file")
     p.add_argument("--input_path", type=str, required=True)
     p.add_argument("--save_plot_path", type=str, default=None)
@@ -367,13 +417,37 @@ def trainer_args(args):
         pretrain_d=pretrain_d if args.pretrained else "", device=args.device)
 
 
-def _train(args) -> None:
+def _train(args) -> int:
+    """One process, or with several ``--gpu`` indices one rank a card
+    through ``parallel.launch`` (the ranks' exit code)."""
+    from .parallel import mesh
+
+    if args.cleanup:
+        cleanup_previous_run(os.path.join("logs", args.model_name))
+    indices = [i for i in args.gpu.split("-") if i != ""]
+    if len(indices) < 2:
+        _train_rank(0, None, args)
+        return 0
+    devices = (["cpu"] * len(indices) if args.device == "cpu"
+               else [f"cuda:{i}" for i in indices])
+    world = mesh.make_world_for_batch(args.batch_size, devices)
+    if len(world) < len(devices):
+        print(f"train: batch {args.batch_size} does not divide over "
+              f"{len(devices)} cards; leaving out --gpu {'-'.join(indices[len(world):])}")
+    args.gpu = "-".join(indices[:len(world)])
+    if len(world) == 1:
+        _train_rank(0, None, args)
+        return 0
+    return mesh.launch(_train_rank, world, args=(args,))
+
+
+def _train_rank(rank: int, device, args) -> None:
+    """A ``train`` run in this process: one rank of ``launch`` (its card is
+    ``--gpu``'s entry ``rank``), or the only one."""
     import torch
 
     from .train.trainer import Trainer
 
-    if args.cleanup:
-        cleanup_previous_run(os.path.join("logs", args.model_name))
     cfg, targs = train_config(args), trainer_args(args)
     # the reference's CUDA switches (train.py): TF32, cuDNN autotuning and
     # determinism
@@ -384,6 +458,8 @@ def _train(args) -> None:
     if args.use_deterministic:
         torch.use_deterministic_algorithms(True, warn_only=True)
     Trainer(cfg, targs).fit()
+    if rank != 0:
+        return
     from .train.index_builder import build_index
 
     try:
@@ -467,20 +543,51 @@ def _audio_analyzer(args) -> None:
     analyze_audio(args.input_path, args.save_plot_path, device=args.device)
 
 
+def _download(args) -> None:
+    from .utils.downloads import model_download_pipeline
+
+    print(model_download_pipeline(args.model_link))
+
+
+def _prerequisites(args) -> None:
+    from .utils.downloads import prerequisites_download_pipeline
+
+    prerequisites_download_pipeline(pretraineds_hifigan=args.pretraineds_hifigan,
+                                    models=args.models, exe=args.exe)
+    if args.prime_cache:
+        from .ops import _build
+
+        _build.build()
+        print(f"kernel libraries built in {_build.BUILD_DIR}")
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     runners = {"train": _train, "preprocess": _preprocess,
                "extract": _extract, "index": _index,
                "model_information": _model_information,
                "model_blender": _model_blender, "tensorboard": _tensorboard,
-               "audio_analyzer": _audio_analyzer}
+               "audio_analyzer": _audio_analyzer, "download": _download,
+               "prerequisites": _prerequisites}
     if args.mode in runners:
-        runners[args.mode](args)
-        return 0
+        return runners[args.mode](args) or 0
     from .infer.converter import VoiceConverter
 
     vc = VoiceConverter(precision=args.precision, device=args.device)
-    if args.mode == "infer":
+    if args.mode == "tts":
+        from .utils.tts import run_tts
+
+        text = args.tts_text
+        if args.input_path and os.path.exists(args.input_path):
+            with open(args.input_path, encoding="utf-8") as f:
+                text = f.read()
+        if not text:
+            raise SystemExit("tts: provide --tts_text or --input_path")
+        run_tts(text, args.tts_voice, args.tts_rate, args.output_tts_path)
+        vc.convert_audio(audio_input_path=args.output_tts_path,
+                         audio_output_path=args.output_rvc_path,
+                         **collect_infer_kwargs(args))
+    elif args.mode == "infer":
         vc.convert_audio(audio_input_path=args.input_path,
                          audio_output_path=args.output_path,
                          **collect_infer_kwargs(args))

@@ -210,7 +210,10 @@ class VoiceConverter:
         ``device_batch`` at a time, as the rows of one
         ``convert_segments_batch``; files longer than ``t_max`` once padded
         take ``convert_audio``'s windowed path. ``split_audio`` and
-        ``f0_file`` convert every file through ``convert_audio``."""
+        ``f0_file`` convert every file through ``convert_audio``. With
+        several cards and a converter on ``"cuda"`` (no index), each batch's
+        rows are split over every card (``Pipeline.enable_batch_sharding``),
+        ``device_batch`` at least the card count."""
         files = [os.path.join(audio_input_paths, f)
                  for f in sorted(os.listdir(audio_input_paths))
                  if f.lower().endswith(AUDIO_EXTS)]
@@ -248,6 +251,12 @@ class VoiceConverter:
             fits = len(audio) + 2 * pipe.t_pad <= pipe.t_max
             (short if fits else long_files).append((f, audio))
 
+        # several cards and no card asked for: each device batch's rows split
+        # over all of them, and at least one row a card
+        if self.device.index is None:
+            if not pipe._replicas:
+                pipe.enable_batch_sharding()
+            device_batch = max(device_batch, len(pipe._replicas or ()))
         index_rate = kwargs.get("index_rate", 0.0)
         index_vectors = self._index(kwargs.get("index_path", ""), index_rate)
         f0_method = kwargs.get("f0_method", "rmvpe")

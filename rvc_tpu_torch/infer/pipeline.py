@@ -14,13 +14,15 @@ padded input on the host side (``get_f0``: the RMVPE predictor in float32,
 at the quietest points into windows that ``voice_conversion_stream``
 converts with ``_convert_core`` (float32 audio upload, cast on the device).
 Batches of whole files go through ``convert_segments_batch`` (windowed
-form) or ``voice_conversion_fused_many`` (fused form) as device rows.
-Not ported: the mesh of the batch paths (ROADMAP A.13) and the f0 methods
-other than RMVPE (A.10).
+form) or ``voice_conversion_fused_many`` (fused form) as device rows;
+``enable_batch_sharding`` splits those rows over several devices, one
+replica of the models on each. Every f0 method serves the windowed path
+(``get_f0``); the fused path runs RMVPE.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 from concurrent.futures import ThreadPoolExecutor
@@ -31,6 +33,7 @@ import torch
 from scipy import signal as sps
 
 from ..device import resolve_device
+from ..models.commons import RowDraws
 from ..ops.retrieval import retrieve_blend
 from ..predictors.f0_extractor import (check_f0_method, interp_f0_to_grid,
                                        parse_f0_methods)
@@ -152,6 +155,8 @@ class Pipeline:
         self.upp = upsample_factor or (tgt_sr // 100)
         self._rmvpe = None
         self._rmvpe_model = None
+        self._replicas: Optional[List["Pipeline"]] = None
+        self._index_copy = None  # (source index, its copy on this device)
 
     def set_rmvpe(self, rmvpe) -> None:
         """Attach an RMVPE predictor (``predictors.rmvpe.RMVPE``) for the
@@ -164,6 +169,72 @@ class Pipeline:
         if p.device != self.device or p.dtype != self.dtype:
             model = copy.deepcopy(model).to(self.device, self.dtype)
         self._rmvpe, self._rmvpe_model = rmvpe, model.eval()
+        for rep in self._replicas or ():
+            rep._rmvpe = rmvpe
+            rep._rmvpe_model = copy.deepcopy(model).to(rep.device).eval()
+
+    # -- several devices ------------------------------------------------------
+
+    def enable_batch_sharding(self, devices=None) -> None:
+        """Split the rows of the batched paths (``convert_segments_batch``,
+        ``voice_conversion_fused_many`` and the streams over them) over
+        ``devices``, as JAX's shards them over a ``dp`` mesh: every file's
+        conversion is independent, so N devices convert N shares of a batch
+        with nothing exchanged. Each device gets a replica of the models
+        (with its own weight caches) and of the index, made once; a batch is
+        padded to a multiple of the device count with copies of its row 0,
+        and each replica is driven under ``torch.cuda.device`` by
+        asynchronous launches from the calling thread, its rows' noise drawn
+        as the unsharded batch draws it. The rows come back in order, equal
+        to the unsharded batch's. With no list: every card of the machine,
+        and nothing when there are fewer than two."""
+        if devices is None:
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 0
+            if n < 2:
+                return
+            devices = [f"cuda:{i}" for i in range(n)]
+        self._replicas = [self._replica(resolve_device(d)) for d in devices]
+
+    def _replica(self, device: torch.device) -> "Pipeline":
+        rep = copy.copy(self)
+        rep.device, rep._replicas, rep._index_copy = device, None, None
+        rep.synthesizer = copy.deepcopy(self.synthesizer).to(device)
+        rep.embedder = copy.deepcopy(self.embedder).to(device)
+        if self._rmvpe_model is not None:
+            rep._rmvpe_model = copy.deepcopy(self._rmvpe_model).to(device)
+        return rep
+
+    def _replica_index(self, index_vectors):
+        """The index on this replica's device, copied once per index."""
+        if index_vectors is None or index_vectors.device == self.device:
+            return index_vectors
+        if self._index_copy is None or self._index_copy[0] is not index_vectors:
+            self._index_copy = (index_vectors, index_vectors.to(self.device))
+        return self._index_copy[1]
+
+    def _sharded(self, n_rows: int, generator, dispatch) -> Tuple[List, List[int]]:
+        """Call ``dispatch(replica, rows, draws)`` for each replica's rows of
+        a batch of ``n_rows`` (padded with row 0), each with a copy of
+        ``generator`` at its current state that draws that replica's rows of
+        the whole batch's draws; ``generator`` then stands where the
+        unsharded batch leaves it. Returns the replicas' device results, in
+        order, and the p_lens of the real rows."""
+        n = len(self._replicas)
+        per = -(-n_rows // n)
+        order = list(range(n_rows)) + [0] * (per * n - n_rows)
+        gen = generator if generator is not None else self._generator(0)
+        outs, p_lens = [], []
+        for r, rep in enumerate(self._replicas):
+            rows = order[r * per:(r + 1) * per]
+            own = torch.Generator(gen.device)
+            own.set_state(gen.get_state())
+            with (torch.cuda.device(rep.device) if rep.device.type == "cuda"
+                  else contextlib.nullcontext()):
+                out, pl = dispatch(rep, rows, RowDraws(own, rows, n_rows))
+            outs.append(out)
+            p_lens += pl
+        gen.set_state(own.get_state())
+        return outs, p_lens[:n_rows]
 
     # -- device graph ---------------------------------------------------------
 
@@ -247,6 +318,10 @@ class Pipeline:
 
     @staticmethod
     def _to_host(audio_out) -> np.ndarray:
+        """A device result (or the replicas' results, rows in order) as a
+        float array."""
+        if isinstance(audio_out, list):
+            audio_out = torch.cat([o.cpu() for o in audio_out])
         out = audio_out.cpu().numpy() if torch.is_tensor(audio_out) else audio_out
         if out.dtype == np.int16:
             out = out.astype(np.float32) / 32767.0
@@ -277,11 +352,13 @@ class Pipeline:
                     np.abs(audio_sum[t - self.t_query:t + self.t_query])))
                 for t in range(self.t_center, audio.shape[0], self.t_center)]
 
-    def _rows(self, segments: List[np.ndarray], pitches=None, pitchfs=None):
-        """Pad segments to the bucket of the longest as one batch of rows:
-        (float32 audio [B, T_pad], p_lens, pitch [B, T_pad/160] int with
-        ones past each row's pitch, pitchf with zeros there, or None)."""
-        t_pad = self._bucket_len(max(len(s) for s in segments))
+    def _rows(self, segments: List[np.ndarray], pitches=None, pitchfs=None,
+              t_pad: Optional[int] = None):
+        """Pad segments to ``t_pad``, by default the bucket of the longest,
+        as one batch of rows: (float32 audio [B, T_pad], p_lens, pitch
+        [B, T_pad/160] int with ones past each row's pitch, pitchf with
+        zeros there, or None)."""
+        t_pad = t_pad or self._bucket_len(max(len(s) for s in segments))
         frames_pad = t_pad // WINDOW
         audio_in = np.zeros((len(segments), t_pad), np.float32)
         p_lens = [self._p_len(len(s), t_pad) for s in segments]
@@ -323,30 +400,40 @@ class Pipeline:
         computes item i; a drain thread waits for each download and applies
         ``finish`` to the host array. At most ``depth + 2`` results are in
         flight."""
-        cuda = self.device.type == "cuda"
         max_inflight = max(int(depth), 2) + 2
 
         def drain(out_host, done, finish):
-            if done is not None:
-                done.synchronize()
+            for event in done:
+                event.synchronize()
             return finish(self._to_host(out_host))
 
         futures = []
         with ThreadPoolExecutor(max_workers=1) as pool:
             for i, (out, finish) in enumerate(dispatched):
-                done = None
-                if cuda:
-                    out_host = torch.empty(out.shape, dtype=out.dtype,
-                                           pin_memory=True)
-                    out_host.copy_(out, non_blocking=True)
-                    done = torch.cuda.Event()
-                    done.record()
-                else:
-                    out_host = out
-                futures.append(pool.submit(drain, out_host, done, finish))
+                futures.append(pool.submit(drain, *self._download(out), finish))
                 if i >= max_inflight:
                     futures[i - max_inflight].result()
             return [f.result() for f in futures]
+
+    @staticmethod
+    def _download(out) -> Tuple[Any, List]:
+        """Enqueue the copy of a device result (or the replicas' results,
+        rows in order) into pinned host memory, on each device's current
+        stream: (the host tensor, the events that mark the copies done)."""
+        outs = out if isinstance(out, list) else [out]
+        if outs[0].device.type != "cuda":
+            return out, []
+        host = torch.empty((sum(o.shape[0] for o in outs), *outs[0].shape[1:]),
+                           dtype=outs[0].dtype, pin_memory=True)
+        events, r0 = [], 0
+        for o in outs:
+            with torch.cuda.device(o.device):
+                host[r0:r0 + o.shape[0]].copy_(o, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+            events.append(event)
+            r0 += o.shape[0]
+        return host, events
 
     def _trim(self, p_lens: List[int]) -> Callable[[np.ndarray], List[np.ndarray]]:
         return lambda out: [out[i, :p * self.upp] for i, p in enumerate(p_lens)]
@@ -356,12 +443,22 @@ class Pipeline:
     def _dispatch_fused_batch(self, audio_segs: List[np.ndarray], sid: int,
                               index_vectors, index_rate, protect, generator,
                               pitch_shift, f0_autotune, f0_autotune_strength,
-                              filter_radius) -> Tuple[torch.Tensor, List[int]]:
+                              filter_radius, t_pad: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, List[int]]:
         """Pack segments into one [B, T_pad] batch and enqueue the fused
-        conversion (no wait). Returns the device result and the p_lens."""
+        conversion (no wait). Returns the device result (with sharding, the
+        replicas' results) and the p_lens."""
         if self._rmvpe is None:
             raise RuntimeError("attach an RMVPE predictor with set_rmvpe first")
-        audio_in, p_lens, _, _ = self._rows(audio_segs)
+        if self._replicas:
+            t_pad = self._bucket_len(max(len(s) for s in audio_segs))
+            return self._sharded(len(audio_segs), generator, lambda rep, rows, draws:
+                                 rep._dispatch_fused_batch(
+                                     [audio_segs[i] for i in rows], sid,
+                                     rep._replica_index(index_vectors), index_rate,
+                                     protect, draws, pitch_shift, f0_autotune,
+                                     f0_autotune_strength, filter_radius, t_pad))
+        audio_in, p_lens, _, _ = self._rows(audio_segs, t_pad=t_pad)
         out = self._convert_fused(
             self._upload(self._quantize_in(audio_in)),
             torch.tensor(p_lens, device=self.device),
@@ -517,11 +614,22 @@ class Pipeline:
         return coarse_f0(f0), f0.astype(np.float32)
 
     def _dispatch_core(self, segments, pitches, pitchfs, sids, index_vectors,
-                       index_rate, protect, generator):
+                       index_rate, protect, generator, t_pad: Optional[int] = None):
         """Pack segments (and their pitch, or None for a model without
         pitch) into rows and enqueue ``_convert_core`` (float32 audio
-        upload, no wait). Returns the device result and the p_lens."""
-        audio_in, p_lens, pit, pif = self._rows(segments, pitches, pitchfs)
+        upload, no wait). Returns the device result (with sharding, the
+        replicas' results) and the p_lens."""
+        if self._replicas:
+            t_pad = self._bucket_len(max(len(s) for s in segments))
+            return self._sharded(len(segments), generator, lambda rep, rows, draws:
+                                 rep._dispatch_core(
+                                     [segments[i] for i in rows],
+                                     [pitches[i] for i in rows],
+                                     [pitchfs[i] for i in rows],
+                                     [sids[i] for i in rows],
+                                     rep._replica_index(index_vectors), index_rate,
+                                     protect, draws, t_pad))
+        audio_in, p_lens, pit, pif = self._rows(segments, pitches, pitchfs, t_pad)
         if pit is not None:
             pit, pif = self._upload(pit), self._upload(pif)
         out = self._convert_core(

@@ -45,14 +45,44 @@ def slice_segments(x: torch.Tensor, ids_str: torch.Tensor,
     return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
+class RowDraws:
+    """A random source for some rows of a batch. Each draw is made for the
+    whole batch of ``total`` rows from ``generator``, and the rows ``rows``
+    (a list of row indices) are kept. Ranks or replicas that each hold a
+    share of one batch thus draw, together, what one process draws for the
+    whole batch. Every draw of the models goes through ``draw``, and every
+    one of them has the batch as its leading axis."""
+
+    def __init__(self, generator: torch.Generator, rows: Sequence[int],
+                 total: int):
+        self.generator, self.rows, self.total = generator, list(rows), int(total)
+
+    @property
+    def device(self) -> torch.device:
+        return self.generator.device
+
+
+def draw(kind: str, shape: Sequence[int], generator, device) -> torch.Tensor:
+    """``torch.rand`` (``kind="rand"``) or ``torch.randn`` of ``shape`` on
+    ``device`` from ``generator``: a ``torch.Generator``, a ``RowDraws``
+    (drawn on its generator's device and moved) or None."""
+    fn = torch.rand if kind == "rand" else torch.randn
+    if isinstance(generator, RowDraws):
+        full = fn((generator.total, *shape[1:]), generator=generator.generator,
+                  device=generator.device)
+        rows = torch.as_tensor(generator.rows, device=full.device)
+        return full.index_select(0, rows).to(device)
+    return fn(tuple(shape), generator=generator, device=device)
+
+
 def rand_slice_starts(lengths: torch.Tensor, segment_size: int,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator=None) -> torch.Tensor:
     """Per-sample slice starts [B] int32, uniform over [0, length - segment]
     (reference commons.py:88-103); the uniform draws are made on the
     generator's device (the host's by default) and moved to the lengths'."""
     ids_max = torch.clamp(lengths - segment_size + 1, min=1).float()
-    u = torch.rand(lengths.shape[0], generator=generator,
-                   device=generator.device if generator is not None else None)
+    u = draw("rand", (lengths.shape[0],), generator,
+             generator.device if generator is not None else None)
     return (u.to(lengths.device) * ids_max).to(torch.int32)
 
 

@@ -12,7 +12,7 @@ import torch
 from torch import nn
 
 from .attentions import Encoder
-from .commons import Conv1d, WaveNet, sequence_mask
+from .commons import Conv1d, WaveNet, draw, sequence_mask
 
 
 class TextEncoder(nn.Module):
@@ -73,7 +73,6 @@ class PosteriorEncoder(nn.Module):
         if self.zero_noise:
             z = m * y_mask
         else:
-            noise = torch.randn(m.shape, generator=generator,
-                                device=m.device).to(m.dtype)
+            noise = draw("randn", m.shape, generator, m.device).to(m.dtype)
             z = (m + noise * torch.exp(logs)) * y_mask
         return z, m, logs, y_mask

@@ -27,7 +27,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..commons import Conv1d, ResBlock, leaky_relu, source_downsample_geometry
+from ..commons import (Conv1d, ResBlock, draw, leaky_relu,
+                       source_downsample_geometry)
 from .sine import CumsumSineGenerator
 
 REFINEGAN_CHANNELS = 512
@@ -55,7 +56,7 @@ class AdaIN(nn.Module):
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if not self.zero_noise:
-            noise = torch.randn(x.shape, generator=generator, device=x.device)
+            noise = draw("randn", x.shape, generator, x.device)
             x = x + noise.to(x.dtype) * self.weight.to(x.dtype)[None, :, None]
         return leaky_relu(x, self.slope)
 

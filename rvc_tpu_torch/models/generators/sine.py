@@ -15,6 +15,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..commons import draw
+
 
 class SineGenerator(nn.Module):
     def __init__(self, sampling_rate: int, num_harmonics: int = 0,
@@ -46,8 +48,7 @@ class SineGenerator(nn.Module):
                                       device=f0.device)[None, None, :]
         phase = phase * harmonic_scale
         if n_waves > 1 and not self.zero_noise:
-            rand_phase = torch.rand((b, 1, n_waves), generator=generator,
-                                    device=f0.device)
+            rand_phase = draw("rand", (b, 1, n_waves), generator, f0.device)
             rand_phase[..., 0] = 0.0
             phase = phase + rand_phase
         sine = torch.sin(2.0 * torch.pi * phase) * self.sine_amplitude
@@ -57,8 +58,8 @@ class SineGenerator(nn.Module):
         if self.zero_noise:
             noise = torch.zeros_like(sine)
         else:
-            noise = noise_amp * torch.randn(sine.shape, generator=generator,
-                                            device=sine.device)
+            noise = noise_amp * draw("randn", sine.shape, generator,
+                                     sine.device)
         return sine * uv + noise, uv, noise
 
 
@@ -112,8 +113,8 @@ class CumsumSineGenerator(nn.Module):
                                       device=f0.device)[None, None, :]
         rad = torch.remainder(f0 * harmonic_scale / self.sampling_rate, 1.0)
         if not self.zero_noise:
-            rand_ini = torch.rand((f0.shape[0], 1, n_waves), generator=generator,
-                                  device=f0.device)
+            rand_ini = draw("rand", (f0.shape[0], 1, n_waves), generator,
+                            f0.device)
             rand_ini[..., 0] = 0.0
             rad = torch.cat([rad[:, :1] + rand_ini, rad[:, 1:]], dim=1)
         phase = wrapped_phase_cumsum(rad)
@@ -123,6 +124,6 @@ class CumsumSineGenerator(nn.Module):
         if self.zero_noise:
             noise = torch.zeros_like(sine)
         else:
-            noise = noise_amp * torch.randn(sine.shape, generator=generator,
-                                            device=sine.device)
+            noise = noise_amp * draw("randn", sine.shape, generator,
+                                     sine.device)
         return sine * uv + noise, uv, noise

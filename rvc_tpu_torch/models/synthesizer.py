@@ -20,7 +20,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .commons import rand_slice_segments, slice_segments
+from .commons import draw, rand_slice_segments, slice_segments
 from .encoders import PosteriorEncoder, TextEncoder
 from .flows import ResidualCouplingBlock
 from .generators.hifigan import HiFiGANGenerator
@@ -146,8 +146,7 @@ class Synthesizer(nn.Module):
         if self.zero_noise or temperature == 0.0:
             z_p = m_p * x_mask
         else:
-            eps = torch.randn(m_p.shape, generator=generator,
-                              device=m_p.device).to(m_p.dtype)
+            eps = draw("randn", m_p.shape, generator, m_p.device).to(m_p.dtype)
             z_p = (m_p + torch.exp(logs_p) * eps * temperature) * x_mask
         if rate is not None:
             head = int(z_p.shape[2] * (1.0 - float(rate)))

@@ -493,13 +493,16 @@ def _launch_stage(fn, x, plan: StagePlan, packed: PackedStage, kernel_sizes,
                      torch.cuda.get_device_properties(x.device).multi_processor_count)
     scratch = torch.empty((max_blocks, MRF_STATE_REGS, MRF_CONSUMERS),
                           dtype=torch.float32, device=x.device)
-    err = fn(
-        x.data_ptr(), out.data_ptr(), packed.w.data_ptr(),
-        packed.bias.data_ptr(), scratch.data_ptr(), b, plan.cp, t,
-        plan.cluster, plan.tile, plan.halo, plan.stages,
-        len(kernel_sizes), _ints(kernel_sizes), len(dilations),
-        _ints(dilations), slope, max_blocks,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # the library's runtime calls (the shared-memory attribute, the cluster
+    # occupancy, the launch) act on the thread's current device
+    with torch.cuda.device(x.device):
+        err = fn(
+            x.data_ptr(), out.data_ptr(), packed.w.data_ptr(),
+            packed.bias.data_ptr(), scratch.data_ptr(), b, plan.cp, t,
+            plan.cluster, plan.tile, plan.halo, plan.stages,
+            len(kernel_sizes), _ints(kernel_sizes), len(dilations),
+            _ints(dilations), slope, max_blocks,
+            torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"mrf_stage: CUDA error {err} at launch")
     return out
@@ -554,9 +557,10 @@ def _resblock_chain_forward(x, w1s, b1s, w2s, b2s, dilations, slope, cache):
         launches["resblock_chain"] += 1
 
     y = x
-    for i, d in enumerate(dilations):
-        conv(2 * i, y, None, m, d, plans[i][1], 1)
-        nxt = out if i == len(dilations) - 1 else state[i % 2]
-        conv(2 * i + 1, m, y, nxt, 1, plans[-1][1], 0)
-        y = nxt
+    with torch.cuda.device(x.device):  # the launches act on the current device
+        for i, d in enumerate(dilations):
+            conv(2 * i, y, None, m, d, plans[i][1], 1)
+            nxt = out if i == len(dilations) - 1 else state[i % 2]
+            conv(2 * i + 1, m, y, nxt, 1, plans[-1][1], 0)
+            y = nxt
     return out if cp == c else out[:, :c].contiguous()

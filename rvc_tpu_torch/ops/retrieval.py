@@ -138,10 +138,11 @@ def knn_topk(queries: torch.Tensor, vectors: torch.Tensor,
     out_i = torch.empty((n_q, k), dtype=torch.int64, device=dev)
     part_d = torch.empty((n_split, n_q, MAX_K), dtype=torch.float32, device=dev)
     part_i = torch.empty((n_split, n_q, MAX_K), dtype=torch.int64, device=dev)
-    err = _lib().rvc_knn_topk(
-        queries.data_ptr(), vectors.data_ptr(), out_d.data_ptr(),
-        out_i.data_ptr(), part_d.data_ptr(), part_i.data_ptr(), n_q, n_v, dim,
-        k, n_split, split_rows, torch.cuda.current_stream(dev).cuda_stream)
+    with torch.cuda.device(dev):  # the launches act on the current device
+        err = _lib().rvc_knn_topk(
+            queries.data_ptr(), vectors.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), part_d.data_ptr(), part_i.data_ptr(), n_q, n_v,
+            dim, k, n_split, split_rows, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_topk: CUDA error {err} at launch")
     launches["knn_topk"] += 1

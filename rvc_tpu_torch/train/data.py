@@ -13,7 +13,9 @@ them, so one seed gives both packages the same batches.
 A batch is padded to its bucket's upper boundary, as in the JAX package
 (there for one compiled shape per bucket; here it keeps the kernels'
 shapes to a handful). ``DeviceDataCache`` keeps the padded dataset on the
-card (``--cache_data_in_gpu``).
+card (``--cache_data_in_gpu``); with several ranks each keeps it on its
+own card, since a rank's share of the examples changes with every epoch's
+shuffle.
 """
 
 from __future__ import annotations
@@ -216,9 +218,12 @@ def pad_batch(
 class BucketBatcher:
     """Length-bucketed batch iterator with static shapes per bucket.
 
-    Mirrors DistributedBucketSampler semantics on one card (epoch-seeded
-    shuffle, buckets padded to a multiple of the batch by repeating
-    indices) but emits host batches padded to the bucket boundary.
+    Mirrors DistributedBucketSampler semantics (epoch-seeded shuffle,
+    buckets padded to a multiple of the global batch by repeating indices,
+    the shards interleaved) but emits host batches padded to the bucket
+    boundary. Shard ``shard_index`` of ``num_shards`` takes ``batch_size``
+    rows a step; the shards' rows of a step together are the one-shard
+    batcher's step at ``batch_size * num_shards`` rows, in the same bucket.
     """
 
     def __init__(
@@ -226,10 +231,14 @@ class BucketBatcher:
         dataset: VCDataset,
         batch_size: int,
         boundaries: Sequence[int] = DEFAULT_BOUNDARIES,
+        shard_index: int = 0,
+        num_shards: int = 1,
     ):
         self.dataset = dataset
         self.batch_size = batch_size
         self.boundaries = list(boundaries)
+        self.shard_index = shard_index
+        self.num_shards = num_shards
 
         self.buckets: List[List[int]] = [[] for _ in range(len(self.boundaries) - 1)]
         for i, length in enumerate(dataset.lengths):
@@ -256,20 +265,22 @@ class BucketBatcher:
                   f"{self.boundaries[0]} frames")
 
     def steps_per_epoch(self) -> int:
-        return sum(-(-len(bucket) // self.batch_size) for bucket in self.buckets)
+        gbs = self.batch_size * self.num_shards
+        return sum(-(-len(bucket) // gbs) for bucket in self.buckets)
 
     def epoch_batches(self, epoch: int) -> Iterator[Tuple[int, List[int]]]:
-        """Yield (bucket_frames, example_indices)."""
+        """Yield (bucket_frames, example_indices) for this shard."""
         rng = np.random.default_rng(epoch)
         plans = []
-        bs = self.batch_size
+        bs, gbs = self.batch_size, self.batch_size * self.num_shards
         for frames, bucket in zip(self.bucket_frames, self.buckets):
             if not bucket:
                 continue
             ids = list(bucket)
             rng.shuffle(ids)
-            rem = (-len(ids)) % bs
+            rem = (-len(ids)) % gbs
             ids = ids + ids * (rem // len(ids)) + ids[: rem % len(ids)]
+            ids = ids[self.shard_index::self.num_shards]
             for j in range(len(ids) // bs):
                 plans.append((frames, ids[j * bs : (j + 1) * bs]))
         rng.shuffle(plans)

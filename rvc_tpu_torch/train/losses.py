@@ -14,6 +14,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from ..models.commons import draw
 from ..ops.stft import mel_basis, multiscale_mel_window, stft_magnitude
 
 Fmaps = List[List[torch.Tensor]]
@@ -76,26 +77,33 @@ def feature_loss_masked(fmap_r: Fmaps, fmap_g: Fmaps,
 
 
 def kl_loss(z_p: torch.Tensor, logs_q: torch.Tensor, m_p: torch.Tensor,
-            logs_p: torch.Tensor, z_mask: torch.Tensor) -> torch.Tensor:
+            logs_p: torch.Tensor, z_mask: torch.Tensor,
+            mask_sum: Optional[torch.Tensor] = None) -> torch.Tensor:
     """KL between the posterior sample and the prior; [B, T, C] tensors and
-    z_mask [B, T, 1], counted once per frame in the denominator."""
+    z_mask [B, T, 1], counted once per frame in the denominator.
+    ``mask_sum`` replaces that denominator (a rank passes the sum of the
+    masks over every rank, so that the ranks' values add up to the global
+    batch's)."""
     kl = logs_p - logs_q - 0.5
     kl = kl + 0.5 * ((z_p.float() - m_p) ** 2) * torch.exp(-2.0 * logs_p)
-    return torch.sum(kl * z_mask) / torch.sum(z_mask)
+    return torch.sum(kl * z_mask) / (torch.sum(z_mask) if mask_sum is None
+                                     else mask_sum)
 
 
 def gradient_penalty(disc_apply: Callable, real: torch.Tensor,
                      fake: torch.Tensor, alpha: Optional[torch.Tensor] = None,
-                     generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                     generator=None, share: float = 1.0) -> torch.Tensor:
     """WGAN-GP unit-gradient penalty on interpolates of real and fake
     [B, T, 1]. ``alpha`` [B, 1, 1] are the interpolation weights, drawn
     uniform from ``generator`` when None. ``disc_apply(real, fake)`` runs
     one doubled batch, so an even batch sends half the interpolates down
     each branch, as the JAX function does. The penalty stays in the graph
-    (its gradient reaches D's parameters)."""
+    (its gradient reaches D's parameters). ``share`` is this batch's share
+    of the global batch's rows: the mean critic is weighted by it, so that
+    each row's gradient is the one the global batch's mean gives it."""
     if alpha is None:  # drawn on the generator's device (the host's by default)
-        alpha = torch.rand((real.shape[0], 1, 1), generator=generator,
-                           device=generator.device if generator else None)
+        alpha = draw("rand", (real.shape[0], 1, 1), generator,
+                     generator.device if generator else None)
     alpha = alpha.to(real.device, real.dtype)
     interp = (alpha * real + (1.0 - alpha) * fake).detach().requires_grad_(True)
     b = interp.shape[0]
@@ -107,7 +115,7 @@ def gradient_penalty(disc_apply: Callable, real: torch.Tensor,
     else:
         outs, _, _, _ = disc_apply(interp, interp)
         per = [o.reshape(o.shape[0], -1).float().mean(dim=1) for o in outs]
-    critic = torch.stack(per).mean()
+    critic = torch.stack(per).mean() * share
     (grads,) = torch.autograd.grad(critic, interp, create_graph=True)
     grads = grads.reshape(grads.shape[0], -1).float()
     norm = torch.sqrt(torch.sum(grads ** 2, dim=1) + 1e-12)

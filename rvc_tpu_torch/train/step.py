@@ -19,6 +19,17 @@ float32. The random latent slice starts, the posterior and sine noise and
 the WGAN-GP interpolation weights come from the host ``torch.Generator``
 the caller passes (the slice starts and the weights may be given
 explicitly); the model's noise is drawn on the device from a seed it gives.
+
+Under ``parallel.launch`` each rank holds an equal share of the global
+batch's rows. It computes its share of every loss, so that the shares add
+up to the global batch's value: a mean over rows is divided by the world
+size, and the KL's denominator is the mask's sum over every rank. The
+gradients of D, then of G and the balancer, are summed over the ranks
+before the norms, the clipping and the optimizers see them, and the
+metrics are summed the same way. The random draws are made for the global
+batch (``models.commons.RowDraws``) and each rank keeps its rows. So the
+ranks step as one process steps on the ranks' rows concatenated in rank
+order, and their parameters stay equal, bit for bit.
 """
 
 from __future__ import annotations
@@ -30,8 +41,9 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from ..models.commons import rand_slice_starts, slice_segments
+from ..models.commons import RowDraws, rand_slice_starts, slice_segments
 from ..ops.stft import mel_spectrogram, spec_to_mel
+from ..parallel.mesh import all_reduce_sum, rank, world_size
 from . import losses as L
 from .optimizers import Optimizer
 
@@ -41,14 +53,16 @@ BALANCER_INIT = {"adv": -0.3466, "mel": -2.2499, "fm": -0.6931, "kl": -0.3466}
 
 
 def balancer_total(balancer: Dict[str, torch.Tensor],
-                   terms: Dict[str, torch.Tensor], frozen: bool) -> torch.Tensor:
+                   terms: Dict[str, torch.Tensor], frozen: bool,
+                   share: float = 1.0) -> torch.Tensor:
     """Uncertainty-weighted total: per term loss / (2 exp(s)^2) + s, the
-    log-sigmas s held at their start while ``frozen``."""
+    log-sigmas s held at their start while ``frozen``; a rank's losses are
+    its shares and ``share`` weights its s."""
     total = 0.0
     for name, loss in terms.items():
         s = (torch.full_like(balancer[name], BALANCER_INIT[name]) if frozen
              else balancer[name])
-        total = total + loss / (2.0 * torch.exp(s) ** 2) + s
+        total = total + loss / (2.0 * torch.exp(s) ** 2) + s * share
     return total
 
 
@@ -105,6 +119,7 @@ class TrainStep:
         self.balancer_freeze_epochs = balancer_freeze_epochs
         self.debug_grads = debug_grads
         self.step = 0
+        self.rank, self.world = rank(), world_size()
         t = cfg.train
         self.seg_frames = t.segment_size // cfg.data.hop_length
         self.dtype = torch.bfloat16 if t.bf16_run else torch.float32
@@ -140,13 +155,22 @@ class TrainStep:
         return functional_call(self.model_d, self._cast(self.model_d, grad_params),
                                (y.to(self.dtype), y_hat.to(self.dtype)))
 
+    def _draws(self, generator, rows: int):
+        """``generator`` as a source of this rank's rows of the global
+        batch's draws (the generator itself on one rank)."""
+        if self.world == 1:
+            return generator
+        return RowDraws(generator, range(self.rank * rows, (self.rank + 1) * rows),
+                        rows * self.world)
+
     def g_forward(self, batch, ids_slice: torch.Tensor, seed: int):
         """The generator's training forward under the precision policy:
         (y_hat, z, z_p, m_p, logs_p, m_q, logs_q, y_mask), float32."""
         dev = batch["phone"].device
 
         def fwd(phone, spec):
-            gen = torch.Generator(dev).manual_seed(seed)
+            gen = self._draws(torch.Generator(dev).manual_seed(seed),
+                              phone.shape[0])
             out = functional_call(
                 self.model_g, self._cast(self.model_g, True),
                 (phone, batch["phone_lengths"], batch["pitch"], batch["pitchf"],
@@ -168,8 +192,10 @@ class TrainStep:
         discriminator update) are drawn from ``generator`` when None."""
         t, d = self.cfg.train, self.cfg.data
         spec_lengths = batch["spec_lengths"]
+        draws = self._draws(generator, spec_lengths.shape[0])
+        share = 1.0 / self.world
         if ids_slice is None:
-            ids_slice = rand_slice_starts(spec_lengths, self.seg_frames, generator)
+            ids_slice = rand_slice_starts(spec_lengths, self.seg_frames, draws)
         seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator).item())
 
         self._mark("g_forward")
@@ -184,19 +210,19 @@ class TrainStep:
             if t.use_wgan:
                 alpha = None if gp_alphas is None else gp_alphas[i]
                 gp = L.gradient_penalty(self.d_apply, wave, y_hat_sg, alpha,
-                                        generator)
-                loss_disc = L.wgan_discriminator_loss(y_d_r, y_d_g) + gp
+                                        draws, share=share)
+                loss_disc = (L.wgan_discriminator_loss(y_d_r, y_d_g) + gp) * share
             else:
-                loss_disc = L.discriminator_loss(y_d_r, y_d_g)
-            grads_d = _grads(loss_disc, self.d_params)
+                loss_disc = L.discriminator_loss(y_d_r, y_d_g) * share
+            grads_d = all_reduce_sum(_grads(loss_disc, self.d_params))
             grad_norm_d = global_norm(grads_d)
             self.opt_d.step(grads_d)
 
         self._mark("g_update")
         frozen = self.step // self.steps_per_epoch < self.balancer_freeze_epochs
-        total, aux = self._g_losses(outputs, wave, batch, ids_slice, frozen)
+        total, aux = self._g_losses(outputs, wave, batch, ids_slice, frozen, share)
         extra = list(self.balancer.values()) if self.balancer is not None else []
-        grads = _grads(total, self.g_params + extra)
+        grads = all_reduce_sum(_grads(total, self.g_params + extra))
         grads_g = grads[:len(self.g_params)]
         grad_norm_g = global_norm(grads_g)
         self.opt_g.step(grads_g)
@@ -205,14 +231,20 @@ class TrainStep:
         self.step += 1
         self._mark("end")
 
-        metrics = {"loss_disc": loss_disc.detach(), "grad_norm_d": grad_norm_d,
-                   "grad_norm_g": grad_norm_g, **aux}
+        # the losses are this rank's shares: their sums are the global values
+        shares = {"loss_disc": loss_disc.detach(), **aux}
+        shares = dict(zip(shares, all_reduce_sum(list(shares.values()))))
+        std_mel_l1 = shares.pop("std_mel_l1")
+        metrics = {"loss_disc": shares.pop("loss_disc"), "grad_norm_d": grad_norm_d,
+                   "grad_norm_g": grad_norm_g, **shares,
+                   "mel_similarity_pct": torch.clamp(100.0 - std_mel_l1 * 100.0,
+                                                     0.0, 100.0)}
         if self.debug_grads:
             metrics.update(self._group_norms("gsub_g", grads_g, self.g_names))
             metrics.update(self._group_norms("gsub_d", grads_d, self.d_names))
         return metrics
 
-    def _g_losses(self, outputs, wave, batch, ids_slice, frozen: bool):
+    def _g_losses(self, outputs, wave, batch, ids_slice, frozen: bool, share: float):
         t, d = self.cfg.train, self.cfg.data
         y_hat, z, z_p, m_p, logs_p, m_q, logs_q, y_mask = outputs
         _, y_d_g, fmap_r, fmap_g = self.d_apply(wave, y_hat, grad_params=False)
@@ -224,28 +256,29 @@ class TrainStep:
         mel = spec_to_mel(batch["spec"].float(), d.filter_length, d.n_mel_channels,
                           d.sample_rate, d.mel_fmin, d.mel_fmax)
         y_mel = slice_segments(mel, ids_slice, self.seg_frames)
-        std_mel_l1 = L.mel_l1_loss(y_mel, y_hat_mel)
+        std_mel_l1 = L.mel_l1_loss(y_mel, y_hat_mel) * share
         if t.use_multiscale_mel:
-            raw_mel = L.multiscale_mel_loss(wave[..., 0], y_hat[..., 0], d.sample_rate)
+            raw_mel = L.multiscale_mel_loss(wave[..., 0], y_hat[..., 0],
+                                            d.sample_rate) * share
             loss_mel = raw_mel if t.use_balancer else raw_mel * t.c_mel / 3.0
         else:
             raw_mel = std_mel_l1
             loss_mel = raw_mel if t.use_balancer else raw_mel * t.c_mel
-        raw_fm = L.feature_loss(fmap_r, fmap_g)
+        raw_fm = L.feature_loss(fmap_r, fmap_g) * share
         loss_fm = raw_fm if t.use_balancer else raw_fm * t.c_fm
-        raw_kl = L.kl_loss(z_p, logs_q, m_p, logs_p, y_mask)
+        mask_sum = all_reduce_sum([torch.sum(y_mask)])[0]
+        raw_kl = L.kl_loss(z_p, logs_q, m_p, logs_p, y_mask, mask_sum)
         loss_kl = raw_kl if t.use_balancer else raw_kl * t.c_kl
         loss_gen = (L.wgan_generator_loss(y_d_g) if t.use_wgan
-                    else L.generator_loss(y_d_g))
+                    else L.generator_loss(y_d_g)) * share
         if t.use_balancer:
             total = balancer_total(self.balancer, {"adv": loss_gen, "mel": loss_mel,
                                                    "fm": loss_fm, "kl": loss_kl},
-                                   frozen)
+                                   frozen, share)
         else:
             total = loss_gen + loss_fm + loss_mel + loss_kl
         aux = {"loss_gen": loss_gen, "loss_fm": loss_fm, "loss_mel": loss_mel,
-               "loss_kl": loss_kl, "loss_gen_all": total,
-               "mel_similarity_pct": torch.clamp(100.0 - std_mel_l1 * 100.0, 0.0, 100.0)}
+               "loss_kl": loss_kl, "loss_gen_all": total, "std_mel_l1": std_mel_l1}
         return total, {k: v.detach() for k, v in aux.items()}
 
     def _group_norms(self, prefix: str, grads, names) -> Dict[str, torch.Tensor]:

@@ -8,7 +8,14 @@ SI-SDR, and PESQ through the ITU wheel where installed, else the numpy
 estimate ``pesq_est``), G/D checkpoints with resume, the deployable
 weights file and the reference-sample render.
 
-One process drives one card. Checkpoints are ``.pth`` files in the
+One process drives one card. Under ``parallel.launch`` (``train --gpu
+0-1``) each card has its process, its replica of the models and its
+shard of every step's global batch of ``batch_size`` rows; the ranks sum
+their gradients (``train/step.py``), so their weights stay equal. Rank 0
+alone writes the checkpoints, the heartbeat and the metrics and runs the
+validation and the reference render; the others wait at a barrier after
+each save. Every rank resumes from the same files, and a stop request on
+any rank stops every rank at the same epoch boundary. Checkpoints are ``.pth`` files in the
 reference's layouts: ``G_<e>.pth`` / ``D_<e>.pth`` (full, with the port's
 optimizer state) and ``<name>_<e>e.pth`` (deployable); resume also reads
 the JAX package's ``.npz``. Metrics go to ``metrics.jsonl`` (and TensorBoard
@@ -36,6 +43,7 @@ from ..device import resolve_device
 from ..models.discriminators import MultiPeriodDiscriminator
 from ..models.synthesizer import Synthesizer
 from ..ops.stft import mel_spectrogram
+from ..parallel.mesh import all_reduce_sum, barrier, rank, world_size
 from . import losses as L
 from .data import BucketBatcher, DeviceDataCache, VCDataset, parse_filelist, train_val_split
 from .optimizers import module_optimizer
@@ -61,13 +69,16 @@ def reset_stop() -> None:
 
 
 class MetricsLogger:
-    """JSONL lines and, where tensorboard is installed, its scalars."""
+    """JSONL lines and, where tensorboard is installed, its scalars; a
+    logger that is not ``enabled`` (a rank other than 0) writes nothing."""
 
-    def __init__(self, log_dir: str):
-        os.makedirs(log_dir, exist_ok=True)
+    def __init__(self, log_dir: str, enabled: bool = True):
         self.path = os.path.join(log_dir, "metrics.jsonl")
+        self._file = self._tb = None
+        if not enabled:
+            return
+        os.makedirs(log_dir, exist_ok=True)
         self._file = open(self.path, "a", buffering=1)
-        self._tb = None
         try:
             from torch.utils.tensorboard import SummaryWriter
 
@@ -76,6 +87,8 @@ class MetricsLogger:
             pass
 
     def log(self, step: int, scalars: Dict[str, float], prefix: str = "") -> None:
+        if self._file is None:
+            return
         rec = {"step": step, **{f"{prefix}{k}": float(v) for k, v in scalars.items()}}
         self._file.write(json.dumps(rec) + "\n")
         if self._tb is not None:
@@ -84,12 +97,14 @@ class MetricsLogger:
                     self._tb.add_scalar(k, v, step)
 
     def flush(self) -> None:
-        self._file.flush()
+        if self._file is not None:
+            self._file.flush()
         if self._tb is not None:
             self._tb.flush()
 
     def close(self) -> None:
-        self._file.close()
+        if self._file is not None:
+            self._file.close()
         if self._tb is not None:
             self._tb.close()
 
@@ -232,10 +247,7 @@ class Trainer:
             raise NotImplementedError(
                 "--use_orbax: orbax checkpoints are the JAX package's; the "
                 "port writes .pth checkpoints and will not have orbax")
-        if args.device_indices is not None and len(args.device_indices) > 1:
-            raise NotImplementedError(
-                f"--gpu {args.device_indices}: training on several cards waits "
-                "for ROADMAP A.13")
+        self.rank, self.world = rank(), world_size()
         train_over = {}
         if args.batch_size:
             train_over["batch_size"] = args.batch_size
@@ -247,9 +259,12 @@ class Trainer:
             cfg = dataclasses.replace(cfg, train=dataclasses.replace(cfg.train, **train_over))
         self.cfg, self.args = cfg, args
         device = args.device
-        if args.device_indices:
-            device = f"{device}:{args.device_indices[0]}"
+        if args.device_indices and torch.device(device).type == "cuda":
+            device = f"cuda:{args.device_indices[self.rank]}"
         self.device = resolve_device(device)
+        if cfg.train.batch_size % self.world:
+            raise ValueError(f"batch_size {cfg.train.batch_size} does not divide "
+                             f"over {self.world} ranks")
 
         rows = parse_filelist(os.path.join(args.exp_dir, "filelist.txt"))
         train_rows, val_rows = train_val_split(rows, 0.1, seed=args.seed)
@@ -258,7 +273,8 @@ class Trainer:
                                   d.hop_length, d.win_length)
         self.val_ds = (VCDataset(val_rows, d.sample_rate, d.filter_length,
                                  d.hop_length, d.win_length) if val_rows else None)
-        self.batcher = BucketBatcher(self.train_ds, cfg.train.batch_size)
+        self.batcher = BucketBatcher(self.train_ds, cfg.train.batch_size // self.world,
+                                     shard_index=self.rank, num_shards=self.world)
         self.steps_per_epoch = max(1, self.batcher.steps_per_epoch())
 
         self.model_g = Synthesizer.from_config(cfg, device=self.device, train=True)
@@ -268,7 +284,7 @@ class Trainer:
                                               t.warmup_epochs, t.lr_decay)
         self.sched_d = self.sched_g if args.lr_d is None else make_epoch_lr_schedule(
             args.lr_d, spe, t.warmup_epochs, t.lr_decay)
-        self.logger = MetricsLogger(args.exp_dir)
+        self.logger = MetricsLogger(args.exp_dir, enabled=self.rank == 0)
         self.step_fn: Optional[TrainStep] = None
         self.start_epoch = 1
 
@@ -353,7 +369,26 @@ class Trainer:
             model.load_state_dict(sd, strict=True)
             print(f"loaded pretrained {kind} from {path}")
 
+    def _check_ranks_agree(self) -> None:
+        """Raise unless every rank holds the same weights, bit for bit: each
+        parameter's bits summed as integers, compared over the ranks."""
+        params = [p for m in (self.model_g, self.model_d) for p in m.parameters()]
+        mine = torch.stack([p.detach().float().contiguous().view(torch.int32)
+                            .to(torch.int64).sum() for p in params])
+        total = all_reduce_sum([mine])[0]
+        if not torch.equal(total, mine * self.world):
+            raise RuntimeError(f"rank {self.rank}: the ranks' weights differ")
+
     def save(self, epoch: int) -> None:
+        """Rank 0 writes G_/D_ and the deployable file; every rank waits for
+        it (and first checks that the ranks' weights agree)."""
+        if self.world > 1:
+            self._check_ranks_agree()
+        if self.rank == 0:
+            self._write_checkpoints(epoch)
+        barrier()
+
+    def _write_checkpoints(self, epoch: int) -> None:
         from ..utils.checkpoints import export_full_pth, export_rvc_pth
 
         suffix = 2333333 if self.args.save_only_latest else epoch
@@ -568,6 +603,14 @@ class Trainer:
         except OSError as e:
             print(f"heartbeat not written ({e})")
 
+    def _stop_requested(self, flag: bool) -> bool:
+        """Whether any rank was asked to stop: the ranks agree, so that all
+        of them stop at the same epoch boundary."""
+        if self.world == 1:
+            return flag
+        votes = torch.tensor([float(flag)], device=self.device)
+        return bool(all_reduce_sum([votes])[0].item() > 0)
+
     def fit(self) -> None:
         """Train from ``start_epoch`` to ``total_epochs``; validate, render
         and save on every save epoch and the last. SIGTERM / SIGINT (or
@@ -589,22 +632,25 @@ class Trainer:
         gen = torch.Generator().manual_seed(self.args.seed)
         try:
             for epoch in range(self.start_epoch, self.args.total_epochs + 1):
-                if interrupted["flag"] or _STOP_EVENT.is_set():
+                if self._stop_requested(interrupted["flag"] or _STOP_EVENT.is_set()):
                     self.save(epoch - 1)
                     print(f"emergency checkpoint at epoch {epoch - 1}; exiting")
                     break
                 stats = self.train_epoch(epoch, gen)
-                print(f"epoch {epoch}/{self.args.total_epochs} "
-                      f"| {stats.get('epoch_seconds', 0):.1f}s "
-                      f"| g={stats.get('avg/loss_gen_all', float('nan')):.3f} "
-                      f"| d={stats.get('avg/loss_disc', float('nan')):.3f}", flush=True)
-                self._write_heartbeat(epoch)
+                if self.rank == 0:
+                    print(f"epoch {epoch}/{self.args.total_epochs} "
+                          f"| {stats.get('epoch_seconds', 0):.1f}s "
+                          f"| g={stats.get('avg/loss_gen_all', float('nan')):.3f} "
+                          f"| d={stats.get('avg/loss_disc', float('nan')):.3f}",
+                          flush=True)
+                    self._write_heartbeat(epoch)
                 if (epoch % self.args.save_every_epoch == 0
                         or epoch == self.args.total_epochs):
-                    vgen = torch.Generator(self.device).manual_seed(
-                        self.args.seed + epoch)
-                    self.validate(vgen)
-                    self.render_reference(epoch, vgen)
+                    if self.rank == 0:
+                        vgen = torch.Generator(self.device).manual_seed(
+                            self.args.seed + epoch)
+                        self.validate(vgen)
+                        self.render_reference(epoch, vgen)
                     self.save(epoch)
                     self.logger.flush()
         finally:

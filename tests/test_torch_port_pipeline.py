@@ -186,7 +186,10 @@ def test_port_imports_no_jax():
     for mod in ("cli.py", "infer/converter.py", "infer/pipeline.py",
                 "utils/checkpoints.py", "utils/faiss_io.py", "utils/audio_io.py",
                 "utils/native.py", "utils/split_audio.py", "predictors/bucketing.py",
-                "predictors/f0_extractor.py", "models/generators/hifigan.py"):
+                "predictors/f0_extractor.py", "models/generators/hifigan.py",
+                "parallel/mesh.py", "ui/app.py", "ui/tabs.py", "ui/gradio_lite.py",
+                "ui/i18n.py", "utils/downloads.py", "utils/tts.py",
+                "utils/link_resolver.py", "utils/http_server.py"):
         assert f"rvc_tpu_torch/{mod}" in rel, mod
     for path in files:
         for name in _imports(path):
@@ -197,7 +200,8 @@ def test_port_imports_no_jax():
 
 def test_port_package_imports_without_jax(tmp_path):
     """Importing every module of the port leaves JAX and the JAX package
-    out of sys.modules (checked in a fresh interpreter)."""
+    out of sys.modules, and starts no thread (no server) and no process
+    (checked in a fresh interpreter)."""
     import subprocess
     import sys
 
@@ -208,7 +212,10 @@ def test_port_package_imports_without_jax(tmp_path):
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'flax', 'rvc_tpu')]\n"
-        "assert not bad, bad\n")
+        "assert not bad, bad\n"
+        "import multiprocessing, threading\n"
+        "assert threading.active_count() == 1, threading.enumerate()\n"
+        "assert not multiprocessing.active_children()\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

@@ -601,8 +601,13 @@ def test_unported_train_options_raise(tmp_path, monkeypatch, extra, item):
     """Options the port does not serve raise ``NotImplementedError`` naming
     their ROADMAP item. The discriminator zoo (A.11) and the other vocoders
     (A.9), which raised so before they were ported, now build the trainer's
-    models (its ``fit`` is stubbed: the filelist is empty)."""
+    models (its ``fit`` is stubbed: the filelist is empty). Several ``--gpu``
+    indices (A.13, ported) ask the launcher for one rank each: with
+    ``--device cpu``, two CPU ranks (the launcher is stubbed here, since a
+    spawned rank would not see the stubbed ``fit``;
+    ``test_torch_port_parallel.py`` runs the ranks)."""
     from rvc_tpu_torch import cli
+    from rvc_tpu_torch.parallel import mesh
     from rvc_tpu_torch.models.custom_discriminators import (
         CombinedDiscriminator, MultiResolutionDiscriminator)
     from rvc_tpu_torch.models.discriminators import MultiPeriodDiscriminator
@@ -626,6 +631,15 @@ def test_unported_train_options_raise(tmp_path, monkeypatch, extra, item):
                 MultiPeriodDiscriminator, MultiResolutionDiscriminator]
         else:
             assert isinstance(trainer.model_g.dec, RefineGANGenerator)
+        return
+    if item == "A.13":
+        calls = []
+        monkeypatch.setattr(mesh, "launch", lambda fn, devices, backend=None, args=():
+                            calls.append((fn, list(devices), args)) or 0)
+        assert cli.main(argv) == 0
+        ((fn, devices, (args,)),) = calls
+        assert (fn, devices, args.gpu, args.device) == (
+            cli._train_rank, ["cpu", "cpu"], "0-1", "cpu")
         return
     with pytest.raises(NotImplementedError, match=item.replace(".", r"\.")):
         cli.main(argv)
