@@ -51,8 +51,8 @@ Phases, in this order, each printing one JSON line:
            small fp32 MRF HiFi-GAN and RefineGAN models on the card against
            the CPU; every discriminator family of the registry in training
            steps with the 48 kHz generator (bf16, batch 8); ``train`` with
-           MRF HiFi-GAN at 40 kHz (mpd,mrd; 1 epoch, a resume to 2) and
-           RefineGAN at 32 kHz (mpd,mssbcqt; 1 epoch), each trained model
+           MRF HiFi-GAN at 40 kHz (mpd,mrd; 1 epoch) and RefineGAN at
+           32 kHz (mpd,mssbcqt; 1 epoch), each trained model
            converting 10 s
   fx       the rest of the user's CLI: ``infer`` of 10 s with formant
            shifting, ``--clean_audio``, all ten effects and FLAC export
@@ -87,11 +87,16 @@ Phases, in this order, each printing one JSON line:
            training shapes gradient; bf16 and f32: T up to 3.2 M, batch 4;
            K3 at 360 000 x 10 000 x 768 in three 16 384-row chunks) and at
            shapes off the path
-           (K1 in bf16 and f32 at batch 2, T = 1, 77, one tile +- 1, 9001,
-           C = 16 and a padded C = 48, two chains with two dilations; K2 at
-           C=512 and at a padded C=48; K3 at k=3 and at a compressed index),
-           with stated tolerances, and time the kernel, the plain version
-           and one library call
+           (stage tails in bf16 (K1) and f32 (the narrow chain kernel at
+           C <= 64) at batch 2, T = 1, 77, one tile +- 1 of each kernel,
+           9001, C = 16 and a padded C = 48, two chains with two dilations;
+           chains in both dtypes through K2 at C=512 and a padded C=200 and
+           through the narrow kernel at T = 1, 77, one tile +- 1, 9001,
+           batch 2, C = 16 and a padded 48; K3 at k=3 and at a compressed
+           index), with stated tolerances; each row names the kernel that
+           ran and times it, the plain version and one library call (for
+           the narrow kernel beside cuDNN's f32 chain its bf16 chain and the
+           wide kernel K2 at the same shape)
   stages   device time of each stage of one conversion (CUDA events)
   trace    (only when asked for) one conversion under torch.profiler:
            device busy time, idle share, the heaviest kernels
@@ -100,7 +105,8 @@ Phases, in this order, each printing one JSON line:
     python3 chip_smoke.py env,build,files,fx,kernels   # the output effects
     python3 chip_smoke.py env,build,files,batch,prep,dist,ui,kernels  # A.13, A.16
     python3 chip_smoke.py env,build,unit   # the kernel checks alone, at the
-                                           # serving shapes, without the models
+                                           # serving shapes (and RefineGAN's
+                                           # narrow chains), without the models
 Then a ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. There is no CPU fallback: without CUDA the script fails.
@@ -129,29 +135,51 @@ PEAK_BF16 = 989e12         # dense bf16 tensor-core FLOP/s
 PEAK_TF32 = 495e12         # dense tf32 tensor-core FLOP/s (3xTF32: 3 per f32 FLOP)
 EXTRA_KNN_N = 10000        # a k-means-compressed index, checked beside the path's
 # the kernels' shapes on the 48 kHz serving path, for the `unit` phase (the
-# `kernels` phase takes them from the pipeline's own run)
+# `kernels` phase takes them from the pipeline's own run): the stage tails
+# in bf16 and, as an fp32 conversion gives them, in f32; RefineGAN's narrow
+# chains (32 kHz, 10 s) at slope 0.2
 UNIT_SHAPES = [("stage", 256, 19176, "bfloat16", (3, 7, 11), (1, 3, 5)),
                ("stage", 128, 191760, "bfloat16", (3, 7, 11), (1, 3, 5)),
                ("stage", 64, 383520, "bfloat16", (3, 7, 11), (1, 3, 5)),
                ("stage", 32, 767040, "bfloat16", (3, 7, 11), (1, 3, 5)),
+               ("stage", 128, 191760, "float32", (3, 7, 11), (1, 3, 5)),
+               ("stage", 64, 383520, "float32", (3, 7, 11), (1, 3, 5)),
+               ("stage", 32, 767040, "float32", (3, 7, 11), (1, 3, 5)),
+               *[("chain", c, t, "bfloat16", (k,), (1, 3, 5), 1, 0.2)
+                 for c, t in ((64, 255680), (32, 511360)) for k in (3, 7, 11)],
                ("knn", 799, 65536, 768, 8)]
-# off the path: (batch, C, T, kernel sizes, dilations) for K1 in bf16 and
-# f32 (T = 1, 77, one output tile - 1 and + 1 at each width, an odd T near
-# 9001; C = 48 runs padded to 64), (C, T, kernel size) for K2 in f32,
-# (Q, N, D, k) for K3
+# off the path: (batch, C, T, kernel sizes, dilations) for stage tails in
+# bf16 (K1) and f32 (the narrow kernel at C <= 64, K2 above): T = 1, 77, one
+# output tile - 1 and + 1 of each kernel at each width, an odd T near 9001;
+# C = 48 runs padded to 64; (batch, C, T, kernel size, slope) for chains in
+# both dtypes: K2 at C = 512 and a padded 200, the narrow kernel at T = 1,
+# 77, one tile +- 1, near 9001, batch 2, C = 16 and a padded 48; (Q, N, D,
+# k) for K3
 EXTRA_STAGE_SHAPES = [
     (2, 128, 1, (3, 7, 11), (1, 3, 5)), (2, 64, 77, (3, 7, 11), (1, 3, 5)),
     (1, 128, 391, (3, 7, 11), (1, 3, 5)), (1, 128, 393, (3, 7, 11), (1, 3, 5)),
     (1, 64, 903, (3, 7, 11), (1, 3, 5)), (1, 64, 905, (3, 7, 11), (1, 3, 5)),
     (2, 32, 903, (3, 7, 11), (1, 3, 5)), (2, 32, 9001, (3, 7, 11), (1, 3, 5)),
     (2, 48, 9001, (3, 7), (1, 3)), (1, 16, 1929, (3, 7, 11), (1, 3, 5)),
-    (2, 16, 9001, (3, 7), (1, 3))]
-EXTRA_CHAIN_SHAPES = [(512, 4099, 7), (48, 3000, 11)]
+    (2, 16, 9001, (3, 7), (1, 3)), (2, 64, 1, (3, 7, 11), (1, 3, 5)),
+    (1, 64, 135, (3, 7, 11), (1, 3, 5)), (1, 64, 137, (3, 7, 11), (1, 3, 5)),
+    (1, 32, 391, (3, 7, 11), (1, 3, 5)), (1, 32, 393, (3, 7, 11), (1, 3, 5)),
+    (1, 16, 905, (3, 7, 11), (1, 3, 5))]
+EXTRA_CHAIN_SHAPES = [
+    (1, 512, 4099, 7, 0.1), (1, 200, 3000, 11, 0.1),
+    (2, 32, 1, 11, 0.2), (2, 64, 77, 7, 0.2), (1, 64, 135, 11, 0.2),
+    (1, 64, 137, 11, 0.2), (1, 32, 391, 11, 0.2), (1, 32, 393, 11, 0.2),
+    (1, 16, 999, 3, 0.2), (1, 16, 1001, 3, 0.2), (2, 32, 9001, 3, 0.2),
+    (2, 48, 9001, 7, 0.2), (1, 16, 9001, 11, 0.1)]
 EXTRA_KNN_SHAPES = [(799, EXTRA_KNN_N, 768, 8), (301, 5003, 256, 3)]
 # K3 shapes with more [Q, N] distances than this are checked in chunks of
 # KNN_CHECK_ROWS queries
 KNN_DENSE_ELEMS = 1 << 30
 KNN_CHECK_ROWS = 16384
+# the kernels of the 48 kHz bf16 serving path; the narrow chain kernel
+# takes RefineGAN's narrow chains and the f32 stage tails (fp32 models,
+# validation)
+SERVING_KERNELS = ("mrf_stage", "resblock_chain", "knn_topk")
 
 
 def emit(obj) -> None:
@@ -360,14 +388,20 @@ def phase_kernels(paths, grad_uses=None):
 
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
-    uses = {}  # shape key -> launches of that shape per path
+    # shape key (a stage's or chain's without its dtype) -> launches of that
+    # shape per (path, dtype): a shape met in bf16 and in f32 is checked once,
+    # in both
+    uses = {}
     for path, shapes in paths.items():
         for sh in shapes:
-            uses.setdefault(_shape_key(sh), collections.Counter())[path] += 1
+            key, dname = _shape_key(sh), None
+            if key[0] in ("stage", "chain"):
+                key, dname = key[:3] + key[4:], key[3]
+            uses.setdefault(key, collections.Counter())[path, dname] += 1
     rec = {path: {n: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                       "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0,
                       "library_ms": 0.0}
-                  for n in ("mrf_stage", "resblock_chain", "knn_topk")}
+                  for n in KERNEL_META}
            for path in paths}
 
     def check(name, key, fn, plain, lib, ref_out, tol, bnd, on_paths, timed=None,
@@ -387,7 +421,7 @@ def phase_kernels(paths, grad_uses=None):
         for path, n in on_paths.items():  # the paths' launches: sum into them
             r = rec[path][name]
             r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-            for f in ("ms", "plain_ms", "library_ms", "cudnn_bf16_ms"):
+            for f in ("ms", "plain_ms", "library_ms", "cudnn_bf16_ms", "wide_ms"):
                 if f in row:
                     r[f] = r.get(f, 0.0) + n * row[f]
             for f, v in zip(("bound_ms", "bytes_ms", "ops_ms"), bnd):
@@ -396,82 +430,36 @@ def phase_kernels(paths, grad_uses=None):
     for key, counts in uses.items():
         if key[0] not in ("stage", "chain"):
             continue
-        kind, c, t, path_dtype, ks, dil, b, slope = key
+        kind, c, t, ks, dil, b, slope = key
         chains = [_rand_chain(gen, c, k, dev, dil) for k in ks]
-        caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
         x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
-            x = x32.to(dtype)
-            nbytes = 2 * x.numel() * x.element_size()
             dname = str(dtype).split(".")[-1]
-            key_row = {"B": b, "C": c, "T": t, "dtype": dname, "slope": slope}
-            on_paths = counts if dname == path_dtype else {}
-            tol = 2e-2 if dtype == torch.bfloat16 else 1e-4
-            if kind == "stage" and c <= MRF_MAX_CHANNELS:  # K1: one launch
-                flops = 2.0 * b * sum(2 * len(dil) * k * c * c * t for k in ks)
-                peak = [(flops, PEAK_BF16)] if dtype == torch.bfloat16 else \
-                    [(3 * flops, PEAK_TF32)]
-                nbytes += sum(2 * len(dil) * k * c * c for k in ks) * (
-                    2 if dtype == torch.bfloat16 else 4)
-                check("mrf_stage", key_row,
-                      lambda: rb.mrf_stage(x, chains, ks, dil, slope, cache=caches[-1]),
-                      lambda: rb.mrf_stage_plain(x, chains, dil, slope),
-                      lambda: [_library_chain(x, ch, dil, slope) for ch in chains],
-                      lambda: rb.mrf_stage_plain(x, chains, dil, slope),
-                      tol, bound(nbytes, peak), on_paths)
-            else:  # K2: two conv launches per dilation of each chain
-                for k, ch, cache in zip(ks, chains, caches):
-                    flops = 2.0 * 2 * len(dil) * k * c * c * t * b
-                    check("resblock_chain", {**key_row, "K": k},
-                          lambda: rb.resblock_chain(x, *ch, dil, slope, cache=cache),
-                          lambda: rb.resblock_chain_plain(x, *ch, dil, slope),
-                          lambda: _library_chain(x.float(), ch, dil, slope),
-                          lambda: rb.resblock_chain_plain(x, *ch, dil, slope),
-                          tol, bound(nbytes + 4 * 2 * len(dil) * k * c * c,
-                                     [(3 * flops, PEAK_TF32)]), on_paths,
-                          extra={"cudnn_bf16_ms": lambda: _library_chain(
-                              x.to(torch.bfloat16), ch, dil, slope)})
-            del x
+            _check_tails(check, kind, x32.to(dtype), chains, ks, dil, slope,
+                         {p: n for (p, dn), n in counts.items() if dn == dname})
         del chains, x32
         torch.cuda.empty_cache()
 
-    for b, c, t, ks, dil in EXTRA_STAGE_SHAPES:  # K1 off the path
+    for b, c, t, ks, dil in EXTRA_STAGE_SHAPES:  # K1 and f32 stages off the path
         chains = [_rand_chain(gen, c, k, dev, dil) for k in ks]
         x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
-            x, cache = x32.to(dtype), rb.WeightCache()
-            flops = 2.0 * sum(2 * len(dil) * k * c * c * t * b for k in ks)
-            wbytes = sum(2 * len(dil) * k * c * c for k in ks) * x.element_size()
-            check("mrf_stage", {"B": b, "C": c, "T": t, "ks": list(ks),
-                                "dil": list(dil), "dtype": str(dtype).split(".")[-1]},
-                  lambda: rb.mrf_stage(x, chains, ks, dil, cache=cache),
-                  lambda: rb.mrf_stage_plain(x, chains, dil),
-                  lambda: [_library_chain(x, ch, dil) for ch in chains],
-                  lambda: rb.mrf_stage_plain(x, chains, dil),
-                  2e-2 if dtype == torch.bfloat16 else 1e-4,
-                  bound(2 * x.numel() * x.element_size() + wbytes,
-                        [(flops, PEAK_BF16)] if dtype == torch.bfloat16
-                        else [(3 * flops, PEAK_TF32)]), {})
+            _check_tails(check, "stage", x32.to(dtype), chains, ks, dil, 0.1, {})
         del chains, x32
 
     dil = (1, 3, 5)
-    for c, t, k in EXTRA_CHAIN_SHAPES:  # K2 off the path, f32
-        ch = _rand_chain(gen, c, k, dev, dil)
-        x = (torch.randn((1, c, t), generator=gen) * 0.3).to(dev)
-        cache = rb.WeightCache()
-        check("resblock_chain", {"C": c, "T": t, "dtype": "float32", "K": k},
-              lambda: rb.resblock_chain(x, *ch, dil, cache=cache),
-              lambda: rb.resblock_chain_plain(x, *ch, dil),
-              lambda: _library_chain(x, ch, dil),
-              lambda: rb.resblock_chain_plain(x, *ch, dil), 1e-4,
-              bound(8 * x.numel() + 4 * 2 * len(dil) * k * c * c,
-                    [(3 * 2.0 * 2 * len(dil) * k * c * c * t, PEAK_TF32)]), {})
-        del ch, x
+    for b, c, t, k, slope in EXTRA_CHAIN_SHAPES:  # K2 and the narrow kernel off the path
+        chains = [_rand_chain(gen, c, k, dev, dil)]
+        x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_tails(check, "chain", x32.to(dtype), chains, (k,), dil, slope, {})
+        del chains, x32
 
     if grad_uses:
         phase_kernel_grads(grad_uses, gen)
 
-    knn_uses = [(k[1:], n) for k, n in uses.items() if k[0] == "knn"]
+    knn_uses = [(k[1:], {p: n for (p, _), n in counts.items()})
+                for k, counts in uses.items() if k[0] == "knn"]
     require(knn_uses or "pipeline" not in paths, "the main path made no retrieval search")
     for (n_q, n_v, d, k), on_paths in knn_uses + [(s, {}) for s in EXTRA_KNN_SHAPES]:
         q = torch.randn((n_q, d), generator=gen).to(dev)
@@ -505,6 +493,71 @@ def phase_kernels(paths, grad_uses=None):
                              else "bytes")
     emit({"phase": "kernels_by_path", "paths": rec})
     return rec
+
+
+def _check_tails(check, kind, x, chains, ks, dil, slope, on_paths):
+    """Hold the kernel that takes a stage tail (``kind`` "stage": one call
+    of ``mrf_stage``) or each of its chains run alone ("chain": one call of
+    ``resblock_chain`` each) against the plain version, as the wrappers
+    route them: a bf16 stage at C <= 128 through K1, an f32 stage at C <=
+    128 and any chain through the narrow chain kernel where
+    ``NARROW_ROUTE`` says so, else through K2. Beside the kernel's time: the
+    plain version's and cuDNN's chains in x's dtype (K1's rows) or in f32
+    (the function K2 and the narrow kernel compute; bf16 beside them), and
+    where the narrow kernel ran, the wide route's (K2) at the same shape in
+    the same call. Each row names the kernel that ran."""
+    import torch
+
+    from rvc_tpu_torch.models.generators.nsf import MRF_MAX_CHANNELS
+    from rvc_tpu_torch.ops import resblock as rb
+
+    b, c, t = x.shape
+    bf16 = x.dtype == torch.bfloat16
+    tol = 2e-2 if bf16 else 1e-4
+    io_bytes = 2 * x.numel() * x.element_size()
+    narrow = rb.narrow_route(c, x.dtype) == "narrow"
+    key_row = {"B": b, "C": c, "T": t, "dtype": str(x.dtype).split(".")[-1],
+               "slope": slope, "dil": list(dil)}
+
+    def flops(k_list):
+        return 2.0 * b * sum(2 * len(dil) * k * c * c * t for k in k_list)
+
+    def wbytes(k_list, size):
+        return sum(2 * len(dil) * k * c * c for k in k_list) * size
+
+    def cudnn_bf16(chs):
+        return lambda: [_library_chain(x.to(torch.bfloat16), ch, dil, slope) for ch in chs]
+
+    if kind == "stage" and c <= MRF_MAX_CHANNELS:
+        name = "mrf_stage" if bf16 else ("narrow_chain" if narrow else "resblock_chain")
+        cache, wide_cache = rb.WeightCache(), rb.WeightCache()
+        extra = {}
+        if name == "narrow_chain":
+            extra = {"cudnn_bf16_ms": cudnn_bf16(chains), "wide_ms": lambda: rb._stage_wide(
+                x, chains, dil, slope, wide_cache)}
+        check(name, {**key_row, "ks": list(ks), "route": name},
+              lambda: rb.mrf_stage(x, chains, ks, dil, slope, cache=cache),
+              lambda: rb.mrf_stage_plain(x, chains, dil, slope),
+              lambda: [_library_chain(x, ch, dil, slope) for ch in chains],
+              lambda: rb.mrf_stage_plain(x, chains, dil, slope), tol,
+              bound(io_bytes + wbytes(ks, x.element_size()),
+                    [(flops(ks), PEAK_BF16)] if bf16 else [(3 * flops(ks), PEAK_TF32)]),
+              on_paths, extra=extra)
+        return
+    name = "narrow_chain" if narrow else "resblock_chain"
+    for k, ch in zip(ks, chains):  # one launch of the narrow kernel, or 6 of K2
+        cache, wide_cache = rb.WeightCache(), rb.WeightCache()
+        extra = {"cudnn_bf16_ms": cudnn_bf16([ch])}
+        if narrow:
+            extra["wide_ms"] = lambda ch=ch, wc=wide_cache: rb._chain_wide(
+                x, *ch, dil, slope, wc)
+        check(name, {**key_row, "K": k, "route": name},
+              lambda ch=ch, cc=cache: rb.resblock_chain(x, *ch, dil, slope, cache=cc),
+              lambda ch=ch: rb.resblock_chain_plain(x, *ch, dil, slope),
+              lambda ch=ch: _library_chain(x.float(), ch, dil, slope),
+              lambda ch=ch: rb.resblock_chain_plain(x, *ch, dil, slope), tol,
+              bound(io_bytes + wbytes([k], 4), [(3 * flops([k]), PEAK_TF32)]),
+              on_paths, extra=extra)
 
 
 def _library_knn(q, v, k):
@@ -579,25 +632,33 @@ def phase_kernel_grads(grad_uses, gen):
 
     dev = torch.device("cuda")
     per_step = collections.defaultdict(
-        lambda: {n: collections.Counter() for n in ("mrf_stage", "resblock_chain")})
+        lambda: {n: collections.Counter() for n in ("mrf_stage", "resblock_chain",
+                                                    "narrow_chain")})
     for key, runs in grad_uses.items():
         kind, c, t, path_dtype, ks, dil, b, slope = key
         chains32 = [_rand_chain(gen, c, k, dev, dil) for k in ks]
         x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
         cot32 = torch.randn((b, c, t), generator=gen).to(dev)
-        name = ("mrf_stage" if kind == "stage" and c <= MRF_MAX_CHANNELS
-                else "resblock_chain")
+        stage = kind == "stage" and c <= MRF_MAX_CHANNELS
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
+            # the kernel the wrappers route this stage or chain to
+            name = ("mrf_stage" if stage and dtype == torch.bfloat16 else
+                    "narrow_chain" if rb.narrow_route(c, dtype) == "narrow" else
+                    "resblock_chain")
             x = x32.to(dtype).requires_grad_()
             chains = [[[w.to(dtype).requires_grad_() for w in part] for part in ch]
                       for ch in chains32]
             flat = [x] + [w for ch in chains for part in ch for w in part]
             cot = cot32.to(dtype)
             caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
-            if name == "mrf_stage":
+            wide_caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
+            if stage:
                 def kernel():
                     return rb.mrf_stage(x, chains, ks, dil, slope, cache=caches[-1])
+
+                def wide():
+                    return rb._stage_wide(x, chains, dil, slope, wide_caches[-1])
 
                 def plain():
                     return rb.mrf_stage_plain(x, chains, dil, slope)
@@ -605,6 +666,10 @@ def phase_kernel_grads(grad_uses, gen):
                 def kernel():
                     return sum(rb.resblock_chain(x, *ch, dil, slope, cache=cc)
                                for ch, cc in zip(chains, caches)) / len(chains)
+
+                def wide():
+                    return sum(rb._chain_wide(x, *ch, dil, slope, cc)
+                               for ch, cc in zip(chains, wide_caches)) / len(chains)
 
                 def plain():
                     return sum(rb.resblock_chain_plain(x, *ch, dil, slope)
@@ -645,6 +710,8 @@ def phase_kernel_grads(grad_uses, gen):
                     row["cudnn_f32_fwd_ms"] = gpu_time_ms(lambda: sum(
                         _library_chain(x32, ch, dil, slope) for ch in chains32), 3)
                     row["cudnn_bf16_fwd_ms"] = gpu_time_ms(library, 3)
+                    if name == "narrow_chain":  # the wide kernel at the same shape
+                        row["wide_fwd_ms"] = gpu_time_ms(wide, 3)
                 row["fwd_bound_ms"] = bound(2 * xbytes + wbytes,
                                             [(flops, PEAK_BF16)] if name == "mrf_stage"
                                             else [(3 * flops, PEAK_TF32)])[0]
@@ -658,9 +725,10 @@ def phase_kernel_grads(grad_uses, gen):
                     lambda: torch.autograd.grad(library(), flat, cot), 3)
                 for run, calls in runs.items():
                     for f in ("fwd_ms", "fwd_bound_ms", "plain_fwd_ms", "cudnn_f32_fwd_ms",
-                              "cudnn_bf16_fwd_ms", "bwd_recompute_ms", "bwd_bound_ms",
-                              "plain_fwd_bwd_ms", "cudnn_fwd_bwd_ms"):
-                        per_step[run][name][f] += calls * row[f]
+                              "cudnn_bf16_fwd_ms", "wide_fwd_ms", "bwd_recompute_ms",
+                              "bwd_bound_ms", "plain_fwd_bwd_ms", "cudnn_fwd_bwd_ms"):
+                        if f in row:
+                            per_step[run][name][f] += calls * row[f]
             emit({"phase": "kernel_grad_check", **row})
             require(fwd_rel <= fwd_tol and grad_rel <= grad_tol,
                     f"{name} B={b} C={c} T={t} {dname}: forward {fwd_rel}, gradient {grad_rel}")
@@ -754,6 +822,11 @@ def _counts():
     return {**rb.launches, **rt.launches}
 
 
+def _require_launched(counts: dict, where: str, names=SERVING_KERNELS) -> None:
+    for name in names:
+        require(counts[name] > 0, f"kernel {name} was not launched on the {where}")
+
+
 def phase_small_reference():
     """A small fp32 model on the card (kernels) against the same model on
     the CPU (plain versions, held against the JAX package by the tests)."""
@@ -782,9 +855,9 @@ def phase_small_reference():
           "max_abs_err_vs_cpu_plain": err, "tol": 1e-3, "launches": counts})
     require(outs["cpu"].shape == outs["cuda"].shape, "small model: shapes differ")
     require(err <= 1e-3, f"small model: card vs CPU plain max abs err {err} > 1e-3")
-    # an fp32 model: its stage tails keep f32 precision through K2's kernel
-    require(counts["resblock_chain"] > 0 and counts["knn_topk"] > 0,
-            "small model: kernels not launched")
+    # an fp32 model: its stage tails (C <= 64) keep f32 precision through
+    # the narrow chain kernel
+    _require_launched(counts, "small fp32 model", ("narrow_chain", "knn_topk"))
 
 
 def _weight_cache_builds(decoder) -> int:
@@ -845,8 +918,7 @@ def phase_pipeline(smi: str):
     require(out.shape == (expect,), f"pipeline output shape {out.shape} != ({expect},)")
     require(bool(np.isfinite(out).all()), "pipeline output not finite")
     require(float(np.abs(out).max()) <= 1.0, "pipeline output exceeds |x| <= 1")
-    for name, n in counts.items():
-        require(n > 0, f"kernel {name} was not launched on the main path")
+    _require_launched(counts, "main path")
     walls = []
     for _ in range(3):
         t0 = time.perf_counter()
@@ -880,8 +952,7 @@ def phase_stream(pipe, audio, index, smi: str):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = _counts()
-    for name, n in counts.items():
-        require(n > 0, f"kernel {name} was not launched on the stream path")
+    _require_launched(counts, "stream path")
     expect = _segment_len(pipe, audio_pad.shape[0])
     require(len(outs) == 4, f"stream returned {len(outs)} outputs")
     for o in outs:
@@ -1251,8 +1322,7 @@ def phase_windowed(smi: str, paths: dict, root: str, seconds: float = 150.0):
     audio16 = load_audio(wav, 16000)
     audio16 = audio16 / max(np.abs(audio16).max() / 0.95, 1.0)
     data = _check_wav(out, _windowed_len(first.pipe, audio16), "windowed")
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched on the windowed path")
+    _require_launched(counts, "windowed path")
     require(len(window_ms) == 3, f"{len(window_ms)} windows, not 3")
     wall = statistics.median(walls)
     emit({"phase": "windowed", "gpu": smi, "input_s": seconds, "input": "44.1 kHz stereo",
@@ -1293,8 +1363,7 @@ def phase_batch(smi: str, paths: dict, root: str):
             if i == 0:
                 counts, rows, pipe = _counts(), probe.rows, probe.pipe
     require(rows == [4], f"batch_infer made convert_segments_batch calls of {rows} rows")
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched on the batch path")
+    _require_launched(counts, "batch path")
     t_bucket = pipe._bucket_len(int(max(lengths.values()) * 16000) + 2 * pipe.t_pad)
     for name, sec in lengths.items():
         n16 = int(sec * 16000) + 2 * pipe.t_pad
@@ -1350,7 +1419,7 @@ def phase_batch(smi: str, paths: dict, root: str):
     require(all(a.shape == b.shape for a, b in zip(outs["cpu"], outs["cuda"])),
             "small batch: shapes differ")
     require(err <= 1e-3, f"small batch: card vs CPU plain max abs err {err} > 1e-3")
-    require(small_counts["resblock_chain"] > 0 and small_counts["knn_topk"] > 0,
+    require(small_counts["narrow_chain"] > 0 and small_counts["knn_topk"] > 0,
             "small batch: kernels not launched")
     audio_s = sum(lengths.values())
     emit({"phase": "batch", "gpu": smi, "files_s": list(lengths.values()),
@@ -1594,7 +1663,7 @@ def phase_small_train(smi: str):
             f"small train step: params differ by {worst} ({off}/{total} beyond 1e-5)")
     require(max(bf_loss_rel.values()) <= 5e-3 and max(bf_norm_rel.values()) <= 1e-1,
             f"small train step: bf16 card vs CPU losses {bf_loss_rel}, norms {bf_norm_rel}")
-    require(counts["resblock_chain"] > 0 and bf_counts["mrf_stage"] > 0,
+    require(counts["narrow_chain"] > 0 and bf_counts["mrf_stage"] > 0,
             f"small train step: kernels not launched ({counts}, {bf_counts})")
 
 
@@ -1642,6 +1711,9 @@ def phase_train(smi: str, root: str):
         require(all(np.isfinite(v) for v in m.values()), f"train step {i}: {m}")
         require(st["launches"]["mrf_stage"] > 0 and st["launches"]["resblock_chain"] > 0,
                 f"train step {i}: K1/K2 launches {st['launches']}")
+    # validation converts in f32: its stage tails at C <= 64 take the narrow
+    # chain kernel
+    require(counts["narrow_chain"] > 0, f"validation: narrow chain kernel not launched {counts}")
     require(len(first.steps) == 3 * spe and len(second.steps) == spe,
             f"{len(first.steps)} + {len(second.steps)} steps, not 4 x {spe}")
     # the first step reached every parameter group of G and D
@@ -1739,16 +1811,19 @@ ZOO_MODELS = (("nsf32", "HiFi-GAN", 32000), ("nsf40", "HiFi-GAN", 40000),
               ("mrf40", "MRF HiFi-GAN", 40000), ("refinegan32", "RefineGAN", 32000))
 ZOO_FAMILIES = ("mpd_v1", "mrd", "msstft", "mssbcqt", "msd", "fregan_mpd", "mmsd")
 ZOO_FAMILY_STEPS = 3
-# (tag, vocoder, rate, discriminators, epochs of the first call, of the resume)
-# one epoch each (and a resume to 2): the whole script stays under 720 s
-ZOO_TRAININGS = (("mrf40", "MRF HiFi-GAN", 40000, "mpd,mrd", 1, 2),
+# (tag, vocoder, rate, discriminators, epochs of the first call, of a
+# resume or None): one epoch each, no resume (phase `train` checks one), so
+# that the whole script stays under 740 s
+ZOO_TRAININGS = (("mrf40", "MRF HiFi-GAN", 40000, "mpd,mrd", 1, None),
                  ("refinegan32", "RefineGAN", 32000, "mpd,mssbcqt", 1, None))
 
 
 def _zoo_launch_ok(vocoder: str, counts: dict) -> bool:
-    """K2 runs every decoder's stage tails; K1 all but RefineGAN's."""
-    return counts["resblock_chain"] > 0 and (vocoder == "RefineGAN"
-                                             or counts["mrf_stage"] > 0)
+    """K2 runs every decoder's wide stage tails; K1 the narrow ones of all
+    but RefineGAN, whose chains at C <= 64 run through the narrow chain
+    kernel."""
+    narrow = "narrow_chain" if vocoder == "RefineGAN" else "mrf_stage"
+    return counts["resblock_chain"] > 0 and counts[narrow] > 0
 
 
 def _decoder_timer(decoder):
@@ -1875,7 +1950,8 @@ def _zoo_small():
         errs[vocoder] = {"max_abs_err_vs_cpu_plain": err, "launches": counts,
                          "samples": int(outs["cuda"].shape[1])}
         require(err <= 1e-3, f"small {vocoder}: card vs CPU plain {err} > 1e-3")
-        require(counts["resblock_chain"] > 0, f"small {vocoder}: K2 not launched: {counts}")
+        require(counts["narrow_chain"] > 0,
+                f"small {vocoder}: the narrow chain kernel not launched: {counts}")
     return errs
 
 
@@ -1985,11 +2061,11 @@ def _zoo_families(smi: str):
 
 def _zoo_trainings(smi: str, files: dict, root: str, rng):
     """``train`` through the CLI at full width with MRF HiFi-GAN at 40 kHz
-    (mpd + mrd, 1 epoch, then a resume to 2) and RefineGAN at 32 kHz (mpd
-    + mssbcqt, 1 epoch), each on 40 clips at its rate: per step finite
-    losses and the decoder's K1/K2 launches, every G and D group's gradient
-    after step 1, the resume, and the exported deployable .pth converting
-    10 s to finite audio of the right length."""
+    (mpd + mrd) and RefineGAN at 32 kHz (mpd + mssbcqt), 1 epoch each (a
+    resume where ``ZOO_TRAININGS`` asks for one), each on 40 clips at its
+    rate: per step finite losses and the decoder's kernel launches, every G
+    and D group's gradient after step 1, and the exported deployable .pth
+    converting 10 s to finite audio of the right length."""
     import torch
 
     from rvc_tpu_torch.train.step import grad_group
@@ -2217,8 +2293,7 @@ def phase_fx(smi: str, files: dict, root: str):
         _reset_counts()
         cli_wall = _cli(argv, root)
         counts = _counts()
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched on the fx path")
+    _require_launched(counts, "fx path")
     pipe = probe.pipe
     n_out = _segment_len(pipe, 160000 + 2 * pipe.t_pad) - 2 * pipe.t_pad_tgt
     data = _check_wav(out, n_out, "fx infer")
@@ -2248,8 +2323,7 @@ def phase_fx(smi: str, files: dict, root: str):
     finally:
         conv.VoiceConverter._output_effects = effects
     require(rows == [4] and len(seen) == 4, f"fx batch: rows {rows}, {len(seen)} outputs")
-    for name, c in batch_counts.items():
-        require(c > 0, f"kernel {name} was not launched on the fx batch path")
+    _require_launched(batch_counts, "fx batch path")
     chain_kw = _fx_kwargs(FX_FLAGS)
     batch_err = 0.0
     t_bucket = bpipe._bucket_len(int(max(lengths.values()) * 16000) + 2 * bpipe.t_pad)
@@ -3286,8 +3360,17 @@ KERNEL_META = {
     "mrf_stage": ("rvc_tpu_torch/csrc/resblock.cu", "rvc_tpu/ops/resblock_pallas.py:437"),
     "resblock_chain": ("rvc_tpu_torch/csrc/resblock_chain.cu",
                        "rvc_tpu/ops/resblock_pallas.py:239"),
+    "narrow_chain": ("rvc_tpu_torch/csrc/resblock_narrow.cu",
+                     "rvc_tpu/ops/resblock_pallas.py:239"),
     "knn_topk": ("rvc_tpu_torch/csrc/knn.cu", "rvc_tpu/ops/retrieval_pallas.py:125"),
 }
+# the TPU kernels the narrow chain kernel carries: fused_resblock's chains
+# at C <= 64 and fused_mrf's f32 stage tails
+NARROW_CARRIES = ["rvc_tpu/ops/resblock_pallas.py:239", "rvc_tpu/ops/resblock_pallas.py:437"]
+# the path whose launches and times a kernel's entry of the kernels line
+# reports: the 48 kHz serving path, and for the narrow chain kernel the 10 s
+# RefineGAN conversion through the CLI (phase `zoo`); `unit` where only it ran
+KERNEL_PATH = {"narrow_chain": "zoo_refinegan32"}
 
 
 def main(argv) -> int:
@@ -3308,9 +3391,9 @@ def main(argv) -> int:
         phase_build()
     if "small" in phases:
         phase_small_reference()
-    counts, rec, launches, path_shapes = {}, {}, {}, {}
+    counts, rec_by_path, launches, path_shapes = {}, {}, {}, {}
     if "unit" in phases:
-        phase_kernels({"unit": UNIT_SHAPES})
+        rec_by_path = phase_kernels({"unit": UNIT_SHAPES})
     user_paths = [p for p in ("windowed", "batch", "nof0", "prep", "zoo", "fx", "dist",
                               "ui") if p in phases]
     require("ui" not in phases or {"batch", "prep"} <= set(phases),
@@ -3357,18 +3440,24 @@ def main(argv) -> int:
             launches["ui"], path_shapes["ui"] = phase_ui(smi, files, root)
             _cuda_switches(switches)  # the UI's training sets the CLI's switches
         if "kernels" in phases and path_shapes:  # at the shapes the paths gave
-            rec = phase_kernels(path_shapes, grad_uses or None).get("pipeline", {})
+            rec_by_path = phase_kernels(path_shapes, grad_uses or None)
         if "pipeline" in phases and "stages" in phases:
             phase_stages(pipe, audio, index, smi)
         if "pipeline" in phases and "trace" in phases:
             phase_trace(run, smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    emit({"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts.get(name, 0), **rec.get(name, {}),
-         "launches_by_path": {p: c.get(name, 0) for p, c in launches.items()}}
-        for name, (src, rep) in KERNEL_META.items()], "gpu": smi})
+    kernels = []
+    for name, (src, rep) in KERNEL_META.items():
+        path = KERNEL_PATH.get(name, "pipeline")
+        if path not in rec_by_path and "unit" in rec_by_path:
+            path = "unit"
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        **({"carries": NARROW_CARRIES} if name == "narrow_chain" else {}),
+                        "path": path, "launches": launches.get(path, {}).get(name, 0),
+                        **rec_by_path.get(path, {}).get(name, {}),
+                        "launches_by_path": {p: c.get(name, 0) for p, c in launches.items()}})
+    emit({"kernels": kernels, "gpu": smi})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

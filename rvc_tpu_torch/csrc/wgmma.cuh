@@ -6,9 +6,10 @@
 // Operand layouts. Both operands of a wgmma are K-major here (the depth is
 // contiguous). Two layouts are used:
 //
-// (a) Without swizzle (resblock_chain.cu in tf32, resblock.cu in bf16). The
-//     tile is cut into 16-byte depth groups (4 floats or 8 bf16), and one
-//     group holds all rows of the tile, 16 bytes per row; for tf32:
+// (a) Without swizzle (resblock_chain.cu and resblock_narrow.cu in tf32,
+//     resblock.cu in bf16). The tile is cut into 16-byte depth groups (4
+//     floats or 8 bf16), and one group holds all rows of the tile, 16 bytes
+//     per row; for tf32:
 //       byte offset of (row, depth) = ((depth / 4) * rows + row) * 16 + (depth % 4) * 4
 //     An 8-row x 16-byte core matrix is then 128 contiguous bytes at any
 //     row, so a tile may start at any row (a conv tap is a row offset), rows
@@ -386,6 +387,56 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[88], uint64_t a,
         "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The same product for N = 16, 32 and 64 (resblock_narrow.cu: time on the
+// M side, the output channels on the N side); accumulator layout as above.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -20,8 +20,15 @@ cluster share one buffer (they exchange their edge rows after every conv),
 which stores 2 * halo rows fewer than it computes; a block fetches each
 conv_1 once and each conv_d twice from L2.
 K2 (``csrc/resblock_chain.cu``, wide stages) runs a chain as two launches
-of one ``wgmma`` 3xTF32 conv kernel per dilation; an f32 stage of
-``mrf_stage`` runs its chains through K2 as well, then takes the mean.
+of one ``wgmma`` 3xTF32 conv kernel per dilation, the output channels on
+the M side in blocks of 128 rows. The narrow chain kernel
+(``csrc/resblock_narrow.cu``, C <= 64) runs a whole chain per time tile in
+one launch, 3xTF32 with time on the M side and C_out = 16, 32 or 64 on the
+N side, the halo recomputed (``narrow_plan`` / ``pack_narrow``); it takes
+both routes where it wins (``NARROW_ROUTE``): ``resblock_chain`` at those
+widths, and an f32 ``mrf_stage`` in one launch that sums the chains and
+scales by 1/n. An f32 stage wider than that runs its chains through K2,
+then takes the mean.
 
 Both wrappers are ``torch.autograd.Function``s, on the card and on the CPU.
 Their backward is what the JAX package's ``custom_vjp`` does: it recomputes
@@ -72,8 +79,30 @@ CONV_BLOCK = 128
 CONV_CHUNK = 32
 CONV_STAGE_BYTES = 2 * CONV_BLOCK * CONV_CHUNK * 4
 CONV_MAX_STAGES = 4
+# the narrow chain kernel: widths it is built for; rows x channels of a
+# block's buffer (two consumer warpgroups, 64 state and 64 conv_d registers
+# a thread); bytes of a weight ring stage and the ring's greatest depth;
+# zero guard rows above and below its planes (the most a tap may reach);
+# threads and registers (setmaxnreg) of the consumers and of the producer's
+# warpgroup
+NARROW_CHANNELS = (16, 32, 64)
+NARROW_BLOCK_ELEMS = 16_384
+NARROW_STAGE_BYTES = 16_384
+NARROW_MAX_STAGES = 6
+NARROW_GUARD = 32
+NARROW_CONSUMERS, NARROW_CONSUMER_REGS = 256, 232
+NARROW_PRODUCERS, NARROW_PRODUCER_REGS = 128, 40
+NARROW_ACC_REGS = 128
+# Which hand-written kernel takes a chain (``resblock_chain``) and an f32
+# stage tail (``mrf_stage``) at each width the narrow kernel is built for,
+# by I/O dtype: "narrow", or "wide" (K2 per chain). Any other width takes
+# K2, and a bf16 stage tail K1. Measured on the card in call `f10a`
+# (chip_smoke.py phase `kernels`, PERF.md §6): the narrow kernel was the
+# faster at every shape of every path, in both dtypes.
+NARROW_ROUTE = {(cp, dtype): "narrow" for cp in NARROW_CHANNELS
+                for dtype in ("float32", "bfloat16")}
 
-launches = {"mrf_stage": 0, "resblock_chain": 0}
+launches = {"mrf_stage": 0, "resblock_chain": 0, "narrow_chain": 0}
 
 
 def reset_launches() -> None:
@@ -216,6 +245,71 @@ def conv_plan(kernel_size: int, dilation: int, tile: int) -> Tuple[int, int, int
     return rows, stages, fixed + stages * CONV_STAGE_BYTES
 
 
+def narrow_channels(channels: int) -> int:
+    """Channels the narrow kernel runs at: 16, 32 or 64 (the extra channels
+    are zero in, zero weights, and stay zero)."""
+    if channels > NARROW_CHANNELS[-1]:
+        raise ValueError(f"narrow chain: C={channels} is over "
+                         f"{NARROW_CHANNELS[-1]} channels")
+    return next(cp for cp in NARROW_CHANNELS if channels <= cp)
+
+
+def narrow_route(channels: int, dtype: torch.dtype) -> str:
+    """"narrow" or "wide": the kernel ``NARROW_ROUTE`` gives a chain, or an
+    f32 stage tail, of ``channels`` channels and I/O ``dtype``."""
+    if channels > NARROW_CHANNELS[-1]:
+        return "wide"
+    return NARROW_ROUTE.get((narrow_channels(channels), str(dtype).split(".")[-1]),
+                            "wide")
+
+
+class NarrowPlan(NamedTuple):
+    """The narrow kernel's geometry for one launch: channels it runs at,
+    rows of a block's buffer, rows at each end of it that the chains spoil,
+    rows a block stores, weight ring stages, shared-memory bytes,
+    accumulator registers a consumer thread."""
+    cp: int
+    rows: int
+    halo: int
+    tile: int
+    stages: int
+    smem: int
+    regs: int
+
+
+def narrow_plan(channels: int, kernel_sizes: Sequence[int],
+                dilations: Sequence[int]) -> NarrowPlan:
+    """The narrow kernel's plan for chains of ``kernel_sizes`` over
+    ``dilations`` (one launch), or ValueError where they do not fit it.
+
+    A block's two consumer warpgroups keep the state of 16384 / cp rows and
+    conv_d's sums in 64 registers a thread each, and run every conv of
+    every chain on all rows of one pair of f32 planes (the raw values and
+    their tf32_small parts) between 32 zero guard rows above and below; no
+    tap may reach further. A chain spoils ``halo`` rows at each end of the
+    buffer, so a block stores rows - 2 * halo. Shared memory holds the two
+    planes, the ring of 16 KB weight stages and the barriers."""
+    if any(k < 1 or k % 2 == 0 for k in kernel_sizes) or any(d < 1 for d in dilations):
+        raise ValueError("narrow chain: kernel sizes must be odd, dilations >= 1")
+    if not (1 <= len(kernel_sizes) <= MRF_MAX_CHAINS
+            and 1 <= len(dilations) <= MRF_MAX_DILATIONS):
+        raise ValueError(f"narrow chain: 1..{MRF_MAX_CHAINS} chains of "
+                         f"1..{MRF_MAX_DILATIONS} dilations")
+    cp = narrow_channels(channels)
+    rows = NARROW_BLOCK_ELEMS // cp
+    halo = _halo(kernel_sizes, dilations)
+    reach = max(kernel_sizes) // 2 * max(dilations)
+    tile = rows - 2 * halo
+    fixed = 2 * (rows + 2 * NARROW_GUARD) * cp * 4 + 2 * NARROW_MAX_STAGES * 8
+    stages = min(NARROW_MAX_STAGES, (SMEM_LIMIT - fixed) // NARROW_STAGE_BYTES)
+    if tile < 1 or stages < 2 or reach > NARROW_GUARD:
+        raise ValueError(f"narrow chain: kernel sizes {tuple(kernel_sizes)} with "
+                         f"dilations {tuple(dilations)} do not fit a block of "
+                         f"{rows} rows at C={cp}")
+    return NarrowPlan(cp, rows, halo, tile, stages,
+                      fixed + stages * NARROW_STAGE_BYTES, NARROW_ACC_REGS)
+
+
 class WeightCache:
     """Packed weights of one module, built at first use and rebuilt when one
     of the tensors they were made from is replaced, modified in place, or
@@ -282,9 +376,24 @@ def pack_conv_tf32(w: torch.Tensor) -> torch.Tensor:
     return planes.permute(1, 3, 6, 0, 4, 2, 5).contiguous().reshape(-1)
 
 
+def pack_conv_narrow(w: torch.Tensor) -> torch.Tensor:
+    """[C, C, K] f32 conv weights (C a multiple of 8) -> the shared-memory
+    images the narrow kernel streams in, flat f32
+    [tap][C_in / 8][plane][group of 4 C_in][C_out][4]: per (tap, 8-channel
+    depth step) one unit of 64 * C bytes, plane 0 the big and plane 1 the
+    small parts, each the B operand of a ``wgmma`` (K-major, two 16-byte
+    depth groups). Element ((((tap * C/8 + ci // 8) * 2 + plane) * 2
+    + ci % 8 // 4) * C + co) * 4 + ci % 4 is that plane of W[co, ci, tap]."""
+    c_out, c_in, k = w.shape
+    planes = torch.stack(split_tf32(w))                  # [2, C_out, C_in, K]
+    planes = planes.reshape(2, c_out, c_in // 8, 2, 4, k)
+    return planes.permute(5, 2, 0, 3, 1, 4).contiguous().reshape(-1)
+
+
 class PackedStage(NamedTuple):
-    """K1's weights of one stage: the convs' images one after the other
-    (chain-major, conv_d then conv_1 per dilation), biases [n_convs, cp]."""
+    """K1's (or the narrow kernel's) weights of one launch: the convs'
+    images one after the other (chain-major, conv_d then conv_1 per
+    dilation), biases [n_convs, cp]."""
     w: torch.Tensor
     bias: torch.Tensor
 
@@ -296,7 +405,9 @@ class PackedChain(NamedTuple):
     bias: torch.Tensor
 
 
-def pack_stage(chains, cp: int) -> PackedStage:
+def _stage_convs(chains, cp: int):
+    """Every conv's weights and bias, chain-major, conv_d then conv_1 per
+    dilation, zero-padded to cp channels."""
     ws, bs = [], []
     for (w1s, b1s, w2s, b2s) in chains:
         for w1, b1, w2, b2 in zip(w1s, b1s, w2s, b2s):
@@ -304,8 +415,17 @@ def pack_stage(chains, cp: int) -> PackedStage:
             bs += [b1.float(), b2.float()]
     if cp != ws[0].shape[0]:
         ws, bs = _pad_weights(ws, bs, cp)
-    return PackedStage(torch.cat([pack_conv_bf16(w) for w in ws]),
-                       torch.stack(bs).contiguous())
+    return ws, torch.stack(bs).contiguous()
+
+
+def pack_stage(chains, cp: int) -> PackedStage:
+    ws, bias = _stage_convs(chains, cp)
+    return PackedStage(torch.cat([pack_conv_bf16(w) for w in ws]), bias)
+
+
+def pack_narrow(chains, cp: int) -> PackedStage:
+    ws, bias = _stage_convs(chains, cp)
+    return PackedStage(torch.cat([pack_conv_narrow(w) for w in ws]), bias)
 
 
 def pack_chain(w1s, b1s, w2s, b2s, cp: int) -> PackedChain:
@@ -365,6 +485,15 @@ def _conv_fn():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _typed(load("resblock_chain"), "rvc_conv_tf32",
                   [p, i, p, i, p, i, p, p, i, i, i, i, i, i, i, i, i, i, f, p])
+
+
+def _narrow_fn():
+    from ._build import load
+
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    ip = ctypes.POINTER(ctypes.c_int)
+    return _typed(load("resblock_narrow"), "rvc_narrow_chain",
+                  [p, i, p, p, p, i, i, i, i, i, i, i, ip, i, ip, f, p])
 
 
 def _chain_direct(y, w1s, b1s, w2s, b2s, dilations, slope):
@@ -449,9 +578,10 @@ def mrf_stage(x, chains, kernel_sizes: Sequence[int],
 
     x [B, C, T] f32 or bf16; chains: per chain (w1s, b1s, w2s, b2s). bf16
     input is one launch of K1 (bf16 operands into f32 sums). f32 input keeps
-    f32 precision: each chain runs through K2's 3xTF32 conv kernel
-    (``resblock_chain``, which counts its launches) and the mean is taken in
-    f32. With a ``cache`` the packed weights are kept between calls. The
+    f32 precision: at C <= 64 one launch of the narrow kernel (3xTF32, the
+    mean over the chains in its last store), wider each chain through K2's
+    3xTF32 conv kernel and the mean in f32 (``NARROW_ROUTE``). With a
+    ``cache`` the packed weights are kept between calls. The
     gradient with respect to x and every weight and bias is the plain-conv
     recompute's (``_MrfStage``)."""
     return _MrfStage.apply(tuple(kernel_sizes), tuple(dilations), slope, cache,
@@ -459,18 +589,16 @@ def mrf_stage(x, chains, kernel_sizes: Sequence[int],
 
 
 def _mrf_stage_forward(x, chains, kernel_sizes, dilations, slope, cache):
+    """The stage on the card: bf16 through K1; f32 through the narrow kernel
+    or K2 per chain, as ``narrow_route`` says."""
     if x.device.type == "cpu":
         return mrf_stage_plain(x, chains, dilations, slope)
     _check_input(x, "mrf_stage")
     cache = cache or WeightCache()
     if x.dtype == torch.float32:
-        chain_caches = cache.get(_chain_tensors(chains), ("stage_f32", len(chains)),
-                                 lambda: tuple(WeightCache() for _ in chains))
-        acc = None
-        for chain, chain_cache in zip(chains, chain_caches):
-            y = resblock_chain(x, *chain, dilations, slope, cache=chain_cache)
-            acc = y if acc is None else acc.add_(y)
-        return acc.div_(len(chains))
+        if narrow_route(x.shape[1], x.dtype) == "narrow":
+            return _narrow_forward(x, chains, kernel_sizes, dilations, slope, cache)
+        return _stage_wide(x, chains, dilations, slope, cache)
     c = x.shape[1]
     plan = stage_plan(c, kernel_sizes, dilations)
     packed = cache.get(_chain_tensors(chains), ("stage", plan.cp),
@@ -480,6 +608,17 @@ def _mrf_stage_forward(x, chains, kernel_sizes, dilations, slope, cache):
     out = _launch_stage(_stage_fn(), x, plan, packed, kernel_sizes, dilations, slope)
     launches["mrf_stage"] += 1
     return out if plan.cp == c else out[:, :c].contiguous()
+
+
+def _stage_wide(x, chains, dilations, slope, cache):
+    """An f32 stage through K2: each chain, then the mean in f32."""
+    chain_caches = cache.get(_chain_tensors(chains), ("stage_f32", len(chains)),
+                             lambda: tuple(WeightCache() for _ in chains))
+    acc = None
+    for chain, chain_cache in zip(chains, chain_caches):
+        y = _chain_wide(x, *chain, dilations, slope, chain_cache)
+        acc = y if acc is None else acc.add_(y)
+    return acc.div_(len(chains))
 
 
 def _launch_stage(fn, x, plan: StagePlan, packed: PackedStage, kernel_sizes,
@@ -511,20 +650,56 @@ def _launch_stage(fn, x, plan: StagePlan, packed: PackedStage, kernel_sizes,
 def resblock_chain(x, w1s, b1s, w2s, b2s, dilations: Sequence[int],
                    slope: float = 0.1,
                    cache: Optional[WeightCache] = None) -> torch.Tensor:
-    """K2: one ResBlock chain, f32 compute (3xTF32), I/O in x's dtype: two
+    """One ResBlock chain, f32 compute (3xTF32), I/O in x's dtype. At C <=
+    64 one launch of the narrow kernel (``NARROW_ROUTE``); wider, K2: two
     launches of the conv kernel per dilation (conv_d into an f32 scratch,
     then conv_1 with the residual), the state between dilations in f32.
-    Each launch adds one to the count. With a ``cache`` the split and
-    packed weights are kept between calls. The gradient is the plain-conv
-    recompute's (``_ResblockChain``)."""
+    Each launch adds one to its kernel's count. With a ``cache`` the split
+    and packed weights are kept between calls. The gradient is the
+    plain-conv recompute's (``_ResblockChain``)."""
     return _ResblockChain.apply(tuple(dilations), slope, cache, x,
                                 *_chain_tensors([(w1s, b1s, w2s, b2s)]))
 
 
+def _narrow_forward(x, chains, kernel_sizes, dilations, slope, cache):
+    """One launch of the narrow kernel on x [B, C <= 64, T]: one chain, or
+    the mean of several (f32)."""
+    c = x.shape[1]
+    plan = narrow_plan(c, kernel_sizes, dilations)
+    packed = cache.get(_chain_tensors(chains), ("narrow", plan.cp),
+                       lambda: pack_narrow(chains, plan.cp))
+    if plan.cp != c:
+        x = F.pad(x, (0, 0, 0, plan.cp - c))
+    b, _, t = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):  # the launch acts on the current device
+        err = _narrow_fn()(
+            x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
+            packed.w.data_ptr(), packed.bias.data_ptr(), b, plan.cp, t,
+            plan.tile, plan.halo, plan.stages, len(kernel_sizes),
+            _ints(kernel_sizes), len(dilations), _ints(dilations), slope,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"narrow chain: CUDA error {err} at launch")
+    launches["narrow_chain"] += 1
+    return out if plan.cp == c else out[:, :c].contiguous()
+
+
 def _resblock_chain_forward(x, w1s, b1s, w2s, b2s, dilations, slope, cache):
+    """The chain on the card through the narrow kernel or K2, as
+    ``narrow_route`` says."""
     if x.device.type == "cpu":
         return resblock_chain_plain(x, w1s, b1s, w2s, b2s, dilations, slope)
     _check_input(x, "resblock_chain")
+    cache = cache or WeightCache()
+    if narrow_route(x.shape[1], x.dtype) == "narrow":
+        return _narrow_forward(x, [(w1s, b1s, w2s, b2s)], (int(w1s[0].shape[-1]),),
+                               dilations, slope, cache)
+    return _chain_wide(x, w1s, b1s, w2s, b2s, dilations, slope, cache)
+
+
+def _chain_wide(x, w1s, b1s, w2s, b2s, dilations, slope, cache):
+    """K2: two launches of the conv kernel per dilation."""
     b, c, t = x.shape
     k = int(w1s[0].shape[-1])
     cp = -(-c // CONV_CHUNK) * CONV_CHUNK
@@ -534,7 +709,7 @@ def _resblock_chain_forward(x, w1s, b1s, w2s, b2s, dilations, slope, cache):
     if not all(p[1] for p in plans):
         raise ValueError(f"resblock_chain: K={k}, dilations {dilations} do "
                          "not fit shared memory")
-    packed = (cache or WeightCache()).get(
+    packed = cache.get(
         [*w1s, *b1s, *w2s, *b2s], ("chain", cp),
         lambda: pack_chain(w1s, b1s, w2s, b2s, cp))
     if cp != c:

@@ -1,6 +1,6 @@
 """Where a CUDA kernel of the PyTorch port spills registers.
 
-    python3 -m rvc_tpu_torch.tools.kernel_spills [resblock|resblock_chain|knn]
+    python3 -m rvc_tpu_torch.tools.kernel_spills [resblock|resblock_chain|resblock_narrow|knn]
 
 Builds the named source of ``rvc_tpu_torch/csrc`` (``nvcc``, as the port
 does at first use), prints ``ptxas -v``'s account of it, disassembles the
