@@ -171,6 +171,17 @@ EXTRA_CHAIN_SHAPES = [
     (1, 64, 137, 11, 0.2), (1, 32, 391, 11, 0.2), (1, 32, 393, 11, 0.2),
     (1, 16, 999, 3, 0.2), (1, 16, 1001, 3, 0.2), (2, 32, 9001, 3, 0.2),
     (2, 48, 9001, 7, 0.2), (1, 16, 9001, 11, 0.1)]
+# configs no preset ships, which the planners refused before the wrappers
+# routed (ROADMAP C1), off the path: (batch, C, T, kernel sizes, dilations)
+# of stage tails at C = 32, 64 and 128 (bf16: chain by chain, K1 refuses
+# each; f32: the narrow kernel at C <= 64, K2 per chain above), and
+# (batch, C, T, K, dilations) of chains whose conv_d no time tile of K2
+# holds whole (C = 64: the narrow kernel; 128: K2's runs of taps)
+ROUTE_STAGE_SHAPES = [(1, c, 20000, ks, dil) for c in (32, 64, 128)
+                      for ks, dil in (((3, 7, 15), (1, 3, 5)), ((3, 7, 11), (1, 3, 9)),
+                                      ((3, 7, 11), (1, 3, 5, 7)))]
+ROUTE_CHAIN_SHAPES = [(1, c, 20000, k, (1, d)) for c in (64, 128)
+                      for k, d in ((15, 13), (15, 15), (21, 11), (3, 99))]
 EXTRA_KNN_SHAPES = [(799, EXTRA_KNN_N, 768, 8), (301, 5003, 256, 3)]
 # K3 shapes with more [Q, N] distances than this are checked in chunks of
 # KNN_CHECK_ROWS queries
@@ -382,7 +393,6 @@ def phase_kernels(paths, grad_uses=None):
     run}) adds the gradient checks of ``phase_kernel_grads``."""
     import torch
 
-    from rvc_tpu_torch.models.generators.nsf import MRF_MAX_CHANNELS
     from rvc_tpu_torch.ops import resblock as rb
     from rvc_tpu_torch.ops import retrieval as rt
 
@@ -455,6 +465,19 @@ def phase_kernels(paths, grad_uses=None):
             _check_tails(check, "chain", x32.to(dtype), chains, (k,), dil, slope, {})
         del chains, x32
 
+    for b, c, t, ks, dil in ROUTE_STAGE_SHAPES:  # the routed configs off the path
+        chains = [_rand_chain(gen, c, k, dev, dil) for k in ks]
+        x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_tails(check, "stage", x32.to(dtype), chains, ks, dil, 0.1, {})
+        del chains, x32
+    for b, c, t, k, dil in ROUTE_CHAIN_SHAPES:
+        chains = [_rand_chain(gen, c, k, dev, dil)]
+        x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            _check_tails(check, "chain", x32.to(dtype), chains, (k,), dil, 0.1, {})
+        del chains, x32
+
     if grad_uses:
         phase_kernel_grads(grad_uses, gen)
 
@@ -496,26 +519,25 @@ def phase_kernels(paths, grad_uses=None):
 
 
 def _check_tails(check, kind, x, chains, ks, dil, slope, on_paths):
-    """Hold the kernel that takes a stage tail (``kind`` "stage": one call
+    """Hold the kernels that take a stage tail (``kind`` "stage": one call
     of ``mrf_stage``) or each of its chains run alone ("chain": one call of
     ``resblock_chain`` each) against the plain version, as the wrappers
-    route them: a bf16 stage at C <= 128 through K1, an f32 stage at C <=
-    128 and any chain through the narrow chain kernel where
-    ``NARROW_ROUTE`` says so, else through K2. Beside the kernel's time: the
-    plain version's and cuDNN's chains in x's dtype (K1's rows) or in f32
-    (the function K2 and the narrow kernel compute; bf16 beside them), and
-    where the narrow kernel ran, the wide route's (K2) at the same shape in
-    the same call. Each row names the kernel that ran."""
+    route them: a stage that ``stage_route`` gives to K1 (bf16) or to the
+    narrow chain kernel (f32) in one launch, any other stage and every chain
+    through ``resblock_chain``, which ``chain_route`` gives to the narrow
+    kernel or to K2. Beside the kernel's time: the plain version's and
+    cuDNN's chains in x's dtype (K1's rows) or in f32 (the function K2 and
+    the narrow kernel compute; bf16 beside them), and where the narrow
+    kernel ran, K2's at the same shape in the same call. Each row names the
+    kernel that ran (``route``: "k1", "narrow", "chains" for a stage)."""
     import torch
 
-    from rvc_tpu_torch.models.generators.nsf import MRF_MAX_CHANNELS
     from rvc_tpu_torch.ops import resblock as rb
 
     b, c, t = x.shape
     bf16 = x.dtype == torch.bfloat16
     tol = 2e-2 if bf16 else 1e-4
     io_bytes = 2 * x.numel() * x.element_size()
-    narrow = rb.narrow_route(c, x.dtype) == "narrow"
     key_row = {"B": b, "C": c, "T": t, "dtype": str(x.dtype).split(".")[-1],
                "slope": slope, "dil": list(dil)}
 
@@ -528,14 +550,15 @@ def _check_tails(check, kind, x, chains, ks, dil, slope, on_paths):
     def cudnn_bf16(chs):
         return lambda: [_library_chain(x.to(torch.bfloat16), ch, dil, slope) for ch in chs]
 
-    if kind == "stage" and c <= MRF_MAX_CHANNELS:
-        name = "mrf_stage" if bf16 else ("narrow_chain" if narrow else "resblock_chain")
-        cache, wide_cache = rb.WeightCache(), rb.WeightCache()
+    route = rb.stage_route(c, x.dtype, ks, dil) if kind == "stage" else "chains"
+    if route != "chains":  # one launch for the whole stage
+        name = "mrf_stage" if route == "k1" else "narrow_chain"
+        cache, wide_caches = rb.WeightCache(), [rb.WeightCache() for _ in chains]
         extra = {}
         if name == "narrow_chain":
-            extra = {"cudnn_bf16_ms": cudnn_bf16(chains), "wide_ms": lambda: rb._stage_wide(
-                x, chains, dil, slope, wide_cache)}
-        check(name, {**key_row, "ks": list(ks), "route": name},
+            extra = {"cudnn_bf16_ms": cudnn_bf16(chains), "wide_ms": lambda: _stage_wide(
+                x, chains, dil, slope, wide_caches)}
+        check(name, {**key_row, "ks": list(ks), "route": route},
               lambda: rb.mrf_stage(x, chains, ks, dil, slope, cache=cache),
               lambda: rb.mrf_stage_plain(x, chains, dil, slope),
               lambda: [_library_chain(x, ch, dil, slope) for ch in chains],
@@ -544,20 +567,32 @@ def _check_tails(check, kind, x, chains, ks, dil, slope, on_paths):
                     [(flops(ks), PEAK_BF16)] if bf16 else [(3 * flops(ks), PEAK_TF32)]),
               on_paths, extra=extra)
         return
-    name = "narrow_chain" if narrow else "resblock_chain"
-    for k, ch in zip(ks, chains):  # one launch of the narrow kernel, or 6 of K2
+    for k, ch in zip(ks, chains):  # one launch of the narrow kernel, or 6 or more of K2
+        narrow = rb.chain_route(c, x.dtype, k, dil) == "narrow"
+        name = "narrow_chain" if narrow else "resblock_chain"
         cache, wide_cache = rb.WeightCache(), rb.WeightCache()
         extra = {"cudnn_bf16_ms": cudnn_bf16([ch])}
         if narrow:
             extra["wide_ms"] = lambda ch=ch, wc=wide_cache: rb._chain_wide(
                 x, *ch, dil, slope, wc)
-        check(name, {**key_row, "K": k, "route": name},
+        check(name, {**key_row, "K": k, "route": "narrow" if narrow else "wide",
+                     **({"stage_route": "chains"} if kind == "stage" else {})},
               lambda ch=ch, cc=cache: rb.resblock_chain(x, *ch, dil, slope, cache=cc),
               lambda ch=ch: rb.resblock_chain_plain(x, *ch, dil, slope),
               lambda ch=ch: _library_chain(x.float(), ch, dil, slope),
               lambda ch=ch: rb.resblock_chain_plain(x, *ch, dil, slope), tol,
               bound(io_bytes + wbytes([k], 4), [(3 * flops([k]), PEAK_TF32)]),
               on_paths, extra=extra)
+
+
+def _stage_wide(x, chains, dil, slope, caches):
+    """A stage tail as each chain through K2 (``_chain_wide``), then the
+    mean in f32: the narrow kernel's stage beside K2's."""
+    from rvc_tpu_torch.ops import resblock as rb
+
+    acc = sum(rb._chain_wide(x, *ch, dil, slope, cc).float()
+              for ch, cc in zip(chains, caches))
+    return (acc / len(chains)).to(x.dtype)
 
 
 def _library_knn(q, v, k):
@@ -627,7 +662,6 @@ def phase_kernel_grads(grad_uses, gen):
     forward's products)."""
     import torch
 
-    from rvc_tpu_torch.models.generators.nsf import MRF_MAX_CHANNELS
     from rvc_tpu_torch.ops import resblock as rb
 
     dev = torch.device("cuda")
@@ -639,13 +673,15 @@ def phase_kernel_grads(grad_uses, gen):
         chains32 = [_rand_chain(gen, c, k, dev, dil) for k in ks]
         x32 = (torch.randn((b, c, t), generator=gen) * 0.3).to(dev)
         cot32 = torch.randn((b, c, t), generator=gen).to(dev)
-        stage = kind == "stage" and c <= MRF_MAX_CHANNELS
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
-            # the kernel the wrappers route this stage or chain to
-            name = ("mrf_stage" if stage and dtype == torch.bfloat16 else
-                    "narrow_chain" if rb.narrow_route(c, dtype) == "narrow" else
-                    "resblock_chain")
+            # the kernel the wrappers route this stage or chain to: one
+            # launch for the stage, or each chain's (the first's, by name)
+            route = rb.stage_route(c, dtype, ks, dil) if kind == "stage" else "chains"
+            stage = route != "chains"
+            name = ("mrf_stage" if route == "k1" else "narrow_chain" if route == "narrow"
+                    else "narrow_chain" if rb.chain_route(c, dtype, ks[0], dil) == "narrow"
+                    else "resblock_chain")
             x = x32.to(dtype).requires_grad_()
             chains = [[[w.to(dtype).requires_grad_() for w in part] for part in ch]
                       for ch in chains32]
@@ -658,7 +694,7 @@ def phase_kernel_grads(grad_uses, gen):
                     return rb.mrf_stage(x, chains, ks, dil, slope, cache=caches[-1])
 
                 def wide():
-                    return rb._stage_wide(x, chains, dil, slope, wide_caches[-1])
+                    return _stage_wide(x, chains, dil, slope, wide_caches)
 
                 def plain():
                     return rb.mrf_stage_plain(x, chains, dil, slope)
@@ -1955,6 +1991,119 @@ def _zoo_small():
     return errs
 
 
+# phase `zoo`'s model with a decoder config no preset ships (ROADMAP C1):
+# kernels (3, 7, 15) over dilations (1, 3, 15) in every stage, the 48 kHz
+# upsample stack from 256 channels (stage tails at C = 128, 64, 32, 16). In
+# bf16 every stage runs chain by chain (a tap reaches 105 rows, past K1's
+# 32 guard rows): K2 at C = 128, its d = 15 conv_d in two runs of taps, the
+# narrow kernel below; in f32 the narrow kernel takes a whole stage at C <=
+# 64 and K2 each chain at C = 128
+CONFIG_MODEL = dict(upsample_initial_channel=256, resblock_kernel_sizes=(3, 7, 15),
+                    resblock_dilation_sizes=((1, 3, 15),) * 3)
+
+
+def _routed_launches(shapes) -> collections.Counter:
+    """The launches of K1, K2 and the narrow kernel that the routes give
+    the recorded stage tails and chains: one a stage that ``stage_route``
+    gives to K1 or the narrow kernel; otherwise per chain one of the narrow
+    kernel, or one of K2 per run of taps of each conv (``conv_taps``)."""
+    from rvc_tpu_torch.ops import resblock as rb
+
+    want = collections.Counter()
+    for sh in shapes:
+        if sh[0] not in ("stage", "chain"):
+            continue
+        kind, c, _, dtype, ks, dil = sh[:6]
+        route = rb.stage_route(c, dtype, ks, dil) if kind == "stage" else "chains"
+        if route != "chains":
+            want["mrf_stage" if route == "k1" else "narrow_chain"] += 1
+            continue
+        for k in ks:
+            if rb.chain_route(c, dtype, k, dil) == "narrow":
+                want["narrow_chain"] += 1
+            else:
+                want["resblock_chain"] += sum(len(rb.conv_taps(k, d)) + len(rb.conv_taps(k, 1))
+                                              for d in dil)
+    return want
+
+
+def _zoo_config(smi: str, root: str):
+    """A deployable .pth whose decoder has ``CONFIG_MODEL``'s config (the
+    rest at full width; random weights, numpy seed 5, scale 0.02), read
+    back by the converter's loader (``load_rvc_pth``, ``build_synthesizer``)
+    and converted (3 s, the small phase's seeded HuBERT and RMVPE, a 3000 x
+    768 index) on the CPU in fp32 (the plain versions) and on the card in
+    fp32 and bf16: the card's fp32 audio within 1e-3 of the CPU's largest
+    value, the bf16 audio finite and of the same length, and on the card
+    every launch of K1, K2 and the narrow kernel the one the routes name
+    (counted per kernel; no stage or chain runs anywhere else). Returns
+    (the card's launches and shapes over both runs, the row)."""
+    import torch
+
+    from rvc_tpu_torch.configs import get_config
+    from rvc_tpu_torch.infer.pipeline import Pipeline, PipelineConfig
+    from rvc_tpu_torch.models.synthesizer import Synthesizer
+    from rvc_tpu_torch.ops import resblock as rb
+    from rvc_tpu_torch.utils.checkpoints import build_synthesizer, export_rvc_pth, load_rvc_pth
+
+    cfg = get_config(48000, **CONFIG_MODEL)
+    synth = Synthesizer.from_config(cfg, device="cpu")
+    _fill_random(synth, np.random.default_rng(5))
+    pth = os.path.join(root, "config_model.pth")
+    export_rvc_pth(synth, pth, cfg)
+    del synth
+    audio = _audio(3.0, np.random.default_rng(6))
+    index = np.random.default_rng(7).normal(size=(3000, 768)).astype(np.float32)
+    outs, launches, shapes, walls = {}, {}, {}, {}
+    for device, precision in (("cpu", "fp32"), ("cuda", "fp32"), ("cuda", "bf16")):
+        _, _, hub, rmvpe = _build_models(device, True, np.random.default_rng(1))
+        model, mcfg, _ = build_synthesizer(*load_rvc_pth(pth), device=device)
+        pipe = Pipeline(48000, model, hub, PipelineConfig(x_pad=1),
+                        upsample_factor=mcfg.upsample_factor, precision=precision,
+                        device=device)
+        pipe.set_rmvpe(rmvpe)
+        tag = f"{device}_{precision}"
+
+        def run():
+            return pipe.pipeline(audio, sid=0, pitch_shift=2, index_vectors=index,
+                                 index_rate=0.75, protect=0.33, filter_radius=3,
+                                 generator=torch.Generator(device).manual_seed(0))
+
+        _reset_counts()
+        t0 = time.perf_counter()
+        shapes[tag] = record_path_shapes(lambda: outs.__setitem__(tag, run()))
+        walls[tag] = time.perf_counter() - t0
+        launches[tag] = _counts()
+        if device == "cuda":
+            want = _routed_launches(shapes[tag])
+            got = {k: launches[tag][k] for k in ("mrf_stage", "resblock_chain", "narrow_chain")}
+            require(got == {k: want.get(k, 0) for k in got},
+                    f"config model {tag}: launches {got}, the routes name {dict(want)}")
+            require(got["resblock_chain"] > 0 and got["narrow_chain"] > 0,
+                    f"config model {tag}: K2 and the narrow kernel should both run: {got}")
+        del pipe, model
+        gc.collect()
+    # the largest error over the largest value (random weights make quiet audio)
+    err = float(np.abs(outs["cpu_fp32"] - outs["cuda_fp32"]).max()
+                / max(np.abs(outs["cpu_fp32"]).max(), 1e-12))
+    row = {"config": {k: list(v) for k, v in CONFIG_MODEL.items() if k != "upsample_initial_channel"},
+           "samples": len(outs["cuda_fp32"]), "rel_err_fp32_vs_cpu_plain": err,
+           "peak_abs": float(np.abs(outs["cpu_fp32"]).max()), "tol": 1e-3,
+           "launches": {k: launches[k] for k in ("cuda_fp32", "cuda_bf16")},
+           "wall_s": walls,
+           "routes": sorted({(sh[1], str(sh[3]).split(".")[-1],
+                              rb.stage_route(sh[1], sh[3], sh[4], sh[5]))
+                             for sh in shapes["cuda_bf16"] + shapes["cuda_fp32"]
+                             if sh[0] == "stage"})}
+    emit({"phase": "zoo_config", "gpu": smi, **row})
+    require(outs["cpu_fp32"].shape == outs["cuda_fp32"].shape == outs["cuda_bf16"].shape,
+            "config model: output lengths differ")
+    require(err <= 1e-3, f"config model: card fp32 vs CPU plain rel err {err} > 1e-3")
+    require(bool(np.isfinite(outs["cuda_bf16"]).all()), "config model: bf16 output not finite")
+    both = collections.Counter(launches["cuda_bf16"]) + collections.Counter(launches["cuda_fp32"])
+    return dict(both), shapes["cuda_bf16"] + shapes["cuda_fp32"], row
+
+
 def _zoo_batch(b: int, frames: int, device):
     """A seeded full-width 48 kHz training batch (numpy seed 8)."""
     import torch
@@ -2158,7 +2307,8 @@ def phase_zoo(smi: str, files: dict, root: str):
     numpy seed 0 (scale 0.02), through ``rvc_tpu_torch.cli.main`` on the
     files of phase ``files``: (a) four 10 s conversions, NSF HiFi-GAN at 32
     and 40 kHz, MRF HiFi-GAN at 40 kHz, RefineGAN at 32 kHz; (b) small fp32
-    MRF HiFi-GAN and RefineGAN models on the card against the CPU; (c) each
+    MRF HiFi-GAN and RefineGAN models on the card against the CPU, and a
+    model whose decoder config no preset ships (``_zoo_config``); (c) each
     discriminator family in training steps; (d) two ``train`` runs. Returns
     (launches and shapes by path, stage or chain shape -> {training path:
     calls per step})."""
@@ -2167,6 +2317,7 @@ def phase_zoo(smi: str, files: dict, root: str):
     launches, shapes, conv = _zoo_conversions(smi, files, root, rng)
     small = _zoo_small()
     emit({"phase": "zoo_small", "gpu": smi, "tol": 1e-3, **small})
+    launches["zoo_config"], shapes["zoo_config"], config = _zoo_config(smi, root)
     switches = _cuda_switches()
     _cuda_switches([False, False, False, False])
     try:
@@ -2182,7 +2333,8 @@ def phase_zoo(smi: str, files: dict, root: str):
           "families": {k: {f: v[f] for f in ("ms_per_warm_step", "d_fwd_bwd_ms", "peak_gb")}
                        for k, v in families.items()},
           "trainings": {k: {f: v[f] for f in ("ms_per_step_median", "epoch_wall_s", "steps")}
-                        for k, v in trains.items()}})
+                        for k, v in trains.items()},
+          "config_model": {f: config[f] for f in ("rel_err_fp32_vs_cpu_plain", "wall_s")}})
     return launches, shapes, grad_uses
 
 

@@ -27,6 +27,12 @@
 //   conv_1:  pre = id,    post = id, res = y, out = the next y
 //
 // There is no halo to recompute, and shared memory goes to the rings.
+// A conv whose activation tile (N + (K - 1) d rows, two planes) does not
+// fit beside two weight stages at any N (K = 15 at d = 15, K = 3 at d = 99)
+// runs as runs of consecutive taps, one launch each: `first` places a run's
+// taps, and each later run adds into the f32 sum of the runs before it
+// through the residual operand (ops/resblock.py:conv_taps), so the kernel
+// takes every K and d.
 // A block computes 128 output channels x N time steps, N = 128, 152 or 176
 // as the wrapper picks it: a block takes an SM to itself, so the grid
 // (time tiles, channel blocks, batch) runs in waves of 132 blocks, and N is
@@ -82,6 +88,8 @@ struct ConvArgs {
   int channels;       // C, a multiple of 32
   int length;         // T
   int taps, dil;
+  int first;          // time offset of tap 0 from the output step: -(K / 2) * d for a
+                      // whole conv, later for a run of its taps
   int rows;           // N + (taps - 1) * dil: rows of an activation tile
   int stages;         // weight ring depth
   int pre_leaky, post_leaky;
@@ -135,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 1) conv_kernel(const ConvArgs a) {
     // ---- activation loaders: one tile per depth chunk ----
     const int pt = tid - (kConsumers + 32);
     const int items = 8 * R;  // (channel group of 4, row)
-    const int g_first = t0 - (K / 2) * a.dil;  // time of tile row 0
+    const int g_first = t0 + a.first;  // time of tile row 0
     for (int kc = 0; kc < n_kc; ++kc) {
       mbar_wait(&b_empty[kc & 1], ((kc >> 1) & 1) ^ 1);
       unsigned char* big = b_buf + (kc & 1) * 2 * plane;
@@ -314,15 +322,18 @@ extern "C" {
 // with pre / post = leaky_relu(slope) where the flag is set, res optional,
 // each of in / res / out f32 or bf16. w: the conv's weights as packed by
 // ops/resblock.py:pack_conv_tf32 (c_blocks blocks of 128 output channels);
-// bias f32 [c_blocks * 128]. tile: time steps per block (128, 152 or 176);
-// stages: depth of the weight ring (2..4); both from ops/resblock.py:conv_plan.
+// bias f32 [c_blocks * 128]. taps, dil, first: the conv's taps (or a run
+// of them), their dilation, and the time offset of the first from the output
+// step (-(taps / 2) * dil for a whole centred conv). tile: time steps per
+// block (128, 152 or 176); stages: depth of the weight ring (2..4); both
+// from ops/resblock.py:conv_launch.
 int rvc_conv_tf32(const void* in, int in_bf16, const void* res, int res_bf16,
                   void* out, int out_bf16, const float* w, const float* bias,
                   int batch, int channels, int c_blocks, int length, int taps,
-                  int dil, int tile, int stages, int pre_leaky, int post_leaky,
+                  int dil, int first, int tile, int stages, int pre_leaky, int post_leaky,
                   float slope, void* stream) {
   if (batch < 1 || channels < kDK || channels % kDK != 0 || length < 1 ||
-      taps < 1 || taps % 2 == 0 || dil < 1 || stages < 2 ||
+      taps < 1 || dil < 1 || stages < 2 ||
       stages > kMaxStages || c_blocks * kCB < channels)
     return (int)cudaErrorInvalidValue;
   ConvArgs a;
@@ -338,6 +349,7 @@ int rvc_conv_tf32(const void* in, int in_bf16, const void* res, int res_bf16,
   a.length = length;
   a.taps = taps;
   a.dil = dil;
+  a.first = first;
   a.rows = tile + (taps - 1) * dil;
   a.stages = stages;
   a.pre_leaky = pre_leaky;

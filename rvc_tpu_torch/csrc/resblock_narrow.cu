@@ -1,4 +1,4 @@
-// Narrow ResBlock chains in f32 on Hopper: the "narrow chain" kernel.
+// Narrow ResBlock chains in f32 on Hopper: the "narrow chain" kernel N.
 //
 // Replaces, at C <= 64, the TPU kernels rvc_tpu/ops/resblock_pallas.py
 // fused_resblock (_fused_resblock_impl, pallas_call at :239: one chain) and,
@@ -22,36 +22,52 @@
 // What the design does about it:
 //   orientation: time is the M side (64 rows a warpgroup product) and the
 //     output channels the N side, N = C = 16, 32 or 64 (the wrapper pads),
-//     wgmma m64nNk8 tf32 with both operands from shared memory: nothing is
-//     computed on padding rows.
-//   the whole chain per time tile, with the halo recomputed, as JAX's
-//     kernel does on the TPU: a block holds R = 16384 / C rows (256 at
-//     C = 64, 512 at 32, 1024 at 16) from `halo` rows before its tile to
-//     `halo` rows after it, runs all 6 convs of the chain on them and stores
-//     the R - 2 * halo rows no conv spoiled (halo = K / 2 * sum(d + 1): 60
-//     rows at K = 11, dilations 1, 3, 5). The signal is read once and
-//     written once a chain: no scratch signal, no state buffer.
-//   one activation plane pair: leaky(y) and then leaky(m) share one pair of
-//     planes [time][channel] in wgmma.cuh's layout (a), the raw f32 values
-//     (what a tensor core reads as the "big" part) and their tf32_small
-//     parts. A conv tap is a row offset of the descriptor's start address,
-//     so a plane serves all K taps; 32 zero guard rows above and below take
-//     the taps that reach past the buffer (so no tap may reach further than
-//     that: K = 11, d = 5 reaches 25). A conv's output stays in registers
-//     until every warpgroup has read the plane, then overwrites it: two
-//     consumer warpgroups keep the state y and a conv's sums m in 2 x 64
-//     registers a thread at every width (NB = 128 / C bands of 64 rows
-//     each, C / 2 registers a band). Two planes of 320 rows
-//     x 64 channels are 160 KB; a second pair would not fit beside the ring.
-//     The consumers run at 232 registers (setmaxnreg; the producer's
-//     warpgroup gives its own up): a block of fewer warps (two warpgroups and
-//     one producer warp) gets 168 registers a thread, as 3 of its 9 warps
-//     share one of the SM's four register files, and spills accumulators.
+//     wgmma m64nNk8 tf32: nothing is computed on padding rows.
+//   A from registers: the activations lie in ONE f32 plane [time][channel]
+//     in wgmma.cuh's layout (a). For every tap, 8-channel depth step and
+//     band of 64 rows a thread loads its 4 values of the A fragment (rows r
+//     and r + 8 of its warp's 16, channels q and q + 4) with plain shared
+//     loads, splits each into its tf32 big part and the exact remainder in
+//     registers, and issues the three products of the 3xTF32 sum with A
+//     from those registers (wgmma_tf32_rs) and B (the weights, big and
+//     small planes) from the ring. A is read from shared memory once per
+//     product triple, not three times, and no plane of small parts is kept.
+//     Each band's triple is one commit group; the fragment of the next
+//     band is loaded while the last two groups run, and a wait that leaves
+//     one group in flight frees the registers of the group before it.
+//   the whole chain per time tile, the halo recomputed once per CLUSTER:
+//     the `cluster` blocks of a cluster (1 or 2: the planner weighs the
+//     waves of blocks against the exchange's cost, ops/resblock.py
+//     narrow_plan) hold consecutive runs of R = 16384 / C rows of one
+//     buffer (256 at C = 64,
+//     512 at 32, 1024 at 16) that starts `halo` rows before the cluster's
+//     tile, run all convs of the chain on them, and store the cluster's
+//     rows no conv spoiled: cluster * R - 2 * halo (halo = K / 2 *
+//     sum(d + 1): 60 rows at K = 11, dilations 1, 3, 5; at C = 64 a
+//     cluster stores 392 of 512 rows, a lone block 136 of 256). The
+//     signal is read once and written once a chain: no scratch signal.
+//   the halo exchange, as K1's (resblock.cu): kGuard = 128 guard rows above
+//     and below the plane take the taps that reach past the block's rows
+//     (so no tap may reach further: K = 11, d = 5 reaches 25; K = 15, d = 9
+//     63); the outer ones are zero, and after every plane write one thread
+//     of the producer's warpgroup copies the block's `reach` edge rows (the
+//     furthest any tap of the launch reaches) into the neighbour's guard
+//     rows by bulk copies through distributed shared memory (Exchange).
+//     The consumers' code touches no neighbour (that would serialise every
+//     wgmma, C7520). With one plane, a conv's output waits in registers
+//     until every warp of the block has read it (drain), and a copy into a
+//     neighbour waits until the neighbour has drained the conv before.
+//   state: two consumer warpgroups keep the state y and a conv's sums m in
+//     2 x 64 registers a thread at every width (NB = 128 / C bands of 64
+//     rows each, C / 2 registers a band), at 240 registers (setmaxnreg; the
+//     producer's warpgroup gives its own up). The sums start from the bias
+//     and meet y only after the products (accumulated onto y, every add
+//     rounds at y's magnitude).
 //   weights: packed by the wrapper as ready shared-memory images, per conv
 //     and (tap, 8-channel depth step) one unit of 64 * C bytes (the big plane
 //     then the small, each [2 depth groups][C_out][4]), streamed in 16 KB
 //     ring stages by one producer thread, one cp.async.bulk + mbarrier each,
-//     4 or 5 stages in flight; every block reads each conv once (from L2).
+//     up to 6 stages in flight; every block reads each conv once (from L2).
 //   several chains in one launch (an f32 stage tail): the block runs the
 //     chains one after the other on the same tile, and the sum over them
 //     waits in the output itself, f32, written and read back by the same
@@ -79,10 +95,14 @@ constexpr int kConsumers = 256;  // two warpgroups
 constexpr int kThreads = 384;    // and the producer's warpgroup
 constexpr int kStageBytes = 16384;
 constexpr int kMaxStages = 6;
-constexpr int kGuard = 32;       // guard rows above and below each plane
+constexpr int kGuard = 128;      // guard rows above and below the plane
 constexpr int kBlockElems = 16384;  // rows x channels of a block's buffer
 constexpr int kMaxChains = 4;
 constexpr int kMaxDil = 4;
+// the exchange's barriers, in this order after the ring's: drained[2],
+// written[2], ready[2], may_send[2], leave
+constexpr int kDrained = 0, kWritten = 2, kReady = 4, kMaySend = 6, kLeave = 8;
+constexpr int kBarriers = 2 * kMaxStages + 9;
 
 struct Args {
   const void* x;
@@ -90,7 +110,8 @@ struct Args {
   const unsigned char* w;  // packed weight images, conv after conv
   const float* bias;       // [n_convs][C]
   int length;
-  int tile, halo, stages;  // tile: rows a block stores
+  int cluster;             // blocks of a cluster: 1 or 2
+  int tile, halo, reach, stages;  // tile: rows a CLUSTER stores
   int n_chains, n_dil;
   int ks[kMaxChains];
   int dil[kMaxDil];
@@ -153,15 +174,47 @@ struct Ring {
   }
 };
 
-// leaky(v) of the thread's two neighbouring channels at shared address
-// `addr` of the big plane, and their tf32_small parts `plane` bytes on.
-__device__ __forceinline__ void store_act(uint32_t addr, uint32_t plane, float v0,
-                                          float v1, float slope) {
-  v0 = leaky(v0, slope);
-  v1 = leaky(v1, slope);
-  st_shared2(addr, v0, v1);
-  st_shared2(addr + plane, tf32_small(v0), tf32_small(v1));
-}
+// The consumers' side of the plane's life. Every plane write (a chain's
+// start and every conv but a chain's last) is one exchange e, and the
+// products that read it end in one drain; the barriers of exchange e are
+// those of index e % 2:
+//   drained (1 arrival): every consumer warp has read the plane of
+//     exchange e (its guard rows too); the exchange thread then lets the
+//     neighbour send exchange e + 1 (may_send, 1 arrival, from the
+//     neighbour's exchange thread).
+//   written (8 arrivals): every consumer warp has written its rows of the
+//     plane (and fenced them for the bulk copies).
+//   ready (8 arrivals, + 1 and the neighbour's bytes in a cluster): the
+//     consumers wait here until the plane is whole, the neighbour's edge
+//     rows in the guard rows included.
+// All a consumer thread keeps is the count of exchanges passed. A lone
+// block (a cluster of one) has no neighbour: the consumers' named barrier
+// is all it takes, before and after a plane write.
+struct Exchange {
+  uint32_t n;
+  bool lone;
+
+  // bars: shared address of the first exchange barrier
+  __device__ __forceinline__ void publish(uint32_t bars, int lane) {
+    if (lone) {
+      consumer_sync();
+      return;
+    }
+    fence_async_proxy();  // this thread's plane writes -> the bulk copies
+    __syncwarp();
+    const uint32_t i = 8 * (n & 1);
+    // lane 0 arrives, under a predicate: no branch between the products
+    mbar_arrive_if(bars + 8 * kWritten + i, lane == 0);
+    mbar_arrive_if(bars + 8 * kReady + i, lane == 0);
+    mbar_wait_cluster(bars + 8 * kReady + i, (n >> 1) & 1);
+    ++n;
+  }
+
+  __device__ __forceinline__ void drain(uint32_t bars, int tid) {
+    consumer_sync();  // every warp's products have read the plane
+    if (!lone) mbar_arrive_if(bars + 8 * kDrained + 8 * ((n - 1) & 1), tid == 0);
+  }
+};
 
 // acc = the conv's bias on the thread's channels (8 j + 2 qd + e), every band.
 template <int C, int NB>
@@ -181,19 +234,19 @@ __device__ __forceinline__ void init_bias(float (&acc)[NB][C / 2], const float* 
 }
 
 // acc[g] += conv over the NB bands of 64 rows: for every tap and 8-channel
-// depth step one 3xTF32 product per band, the weights from the ring as their
-// 16 KB stages arrive. a_desc: the big plane at the warpgroup's first row,
-// tap offset 0, depth step 0.
+// depth step one 3xTF32 product per band, A from registers, the weights
+// from the ring as their 16 KB stages arrive. frag: the thread's A value at
+// its row r (band 0), depth group 0 of the plane, tap offset 0.
 template <int C, int NB>
 __device__ __forceinline__ void conv_products(
-    float (&acc)[NB][C / 2], uint64_t a_desc, int K, int d,
+    float (&acc)[NB][C / 2], const unsigned char* frag, int K, int d,
     unsigned char* ring_buf, uint64_t* full, uint64_t* empty, int stages,
     Ring& ring, int lane) {
   constexpr int kSteps = C / 8;            // depth steps per tap
   constexpr int kUnit = 64 * C;            // bytes of one (tap, depth step)
   constexpr int kUnits = kStageBytes / kUnit;
-  constexpr int rows = kBlockElems / C + 2 * kGuard;  // of a plane
-  constexpr uint64_t small16 = (uint64_t)rows * C * 4 / 16;  // the small plane
+  constexpr int rows = kBlockElems / C + 2 * kGuard;  // of the plane
+  constexpr int kGroup = rows * 4;         // floats from a depth group to the next
   const int hk = K / 2;
   const int n_units = K * kSteps;
   int prev = -1;
@@ -201,21 +254,35 @@ __device__ __forceinline__ void conv_products(
     mbar_wait(&full[ring.stage], ring.phase);
     const int n_u = min(kUnits, n_units - u0);
     const uint64_t b_desc = operand_desc(ring_buf + ring.stage * kStageBytes, C);
-    wgmma_fence();
     for (int u = 0; u < n_u; ++u) {
       const int unit = u0 + u;
       const int tap = unit / kSteps, step = unit - tap * kSteps;
       // in 16-byte rows: two depth groups per step, the tap's row offset
-      const int off = 2 * step * rows + (tap - hk) * d;
+      const float* a =
+          reinterpret_cast<const float*>(frag + (2 * step * rows + (tap - hk) * d) * 16);
       const uint64_t b_big = b_desc + (uint64_t)(u * (kUnit >> 4));
       const uint64_t b_small = b_big + (uint64_t)(kUnit >> 5);
 #pragma unroll
       for (int g = 0; g < NB; ++g) {
-        const uint64_t a_big = a_desc + (uint64_t)(int64_t)(off + 64 * g);
-        wgmma_3xtf32(acc[g], a_big, a_big + small16, b_big, b_small, 1);
+        // rows r and r + 8 of band g, channels q and q + 4 of the step
+        const float* p = a + g * 64 * 4;
+        const float v[4] = {p[0], p[8 * 4], p[kGroup], p[kGroup + 8 * 4]};
+        uint32_t big[4], small[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          big[i] = __float_as_uint(v[i]) & 0xffffe000u;
+          small[i] = __float_as_uint(v[i] - __uint_as_float(big[i]));
+        }
+        // the group before the last is done: its registers are free (two
+        // or three in flight measured alike, tools/narrow_ab.py)
+        wgmma_wait<1>();
+        wgmma_fence();
+        wgmma_tf32_rs(acc[g], small, b_big);
+        wgmma_tf32_rs(acc[g], big, b_small);
+        wgmma_tf32_rs(acc[g], big, b_big);
+        wgmma_commit();
       }
     }
-    wgmma_commit();
     wgmma_wait<1>();  // the previous stage's products are done: free it
     if (prev >= 0 && lane == 0) mbar_arrive(&empty[prev]);
     prev = ring.stage;
@@ -233,33 +300,45 @@ __global__ void __launch_bounds__(kThreads, 1) narrow_kernel(const Args a) {
   constexpr int rows = R + 2 * kGuard;
   constexpr int plane = rows * C * 4;
   extern __shared__ __align__(128) unsigned char smem[];
-  unsigned char* ring_buf = smem + 2 * plane;
+  unsigned char* ring_buf = smem + plane;
   uint64_t* full = reinterpret_cast<uint64_t*>(ring_buf + a.stages * kStageBytes);
   uint64_t* empty = full + kMaxStages;
+  uint64_t* xbar = empty + kMaxStages;  // the exchange's barriers
 
   const int tid = threadIdx.x;
   const int S = a.stages;
+  // the grid's x runs over (tile, rank) and its clusters are along x: rank
+  // and tile from blockIdx and an argument, uniform over the block
+  const int rank = blockIdx.x % a.cluster, ti = blockIdx.x / a.cluster;
 
   if (tid == 0) {
     for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumers / 32);
     }
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&xbar[kDrained + i], 1);
+      mbar_init(&xbar[kWritten + i], kConsumers / 32);
+      mbar_init(&xbar[kReady + i], kConsumers / 32 + (a.cluster > 1));
+      mbar_init(&xbar[kMaySend + i], 1);
+    }
+    mbar_init(&xbar[kLeave], 1);
     mbar_init_fence();
   }
-  // the guard rows of both planes stay zero for the block's life
-  for (int i = tid; i < 2 * (C / 4) * 2 * kGuard; i += kThreads) {
-    const int group = i / (2 * kGuard), r = i - group * 2 * kGuard;
-    const int row = r < kGuard ? r : R + r;
+  // the `reach` guard rows above and below the block's rows, all a tap
+  // reads, stay zero for the block's life where no neighbour's rows land
+  for (int i = tid; i < (C / 4) * 2 * a.reach; i += kThreads) {
+    const int group = i / (2 * a.reach), r = i - group * 2 * a.reach;
+    const int row = r < a.reach ? kGuard - a.reach + r : kGuard + R - a.reach + r;
     *reinterpret_cast<uint4*>(smem + (group * rows + row) * 16) = make_uint4(0, 0, 0, 0);
   }
   fence_async_proxy();
-  __syncthreads();
+  cluster_sync();  // barriers and zeroed guards are there before a neighbour writes
 
   if (tid >= kConsumers) {
-    // ---- producer: every conv of every chain, once ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (tid == kConsumers) {
+      // ---- producer: every conv of every chain, once ----
       Ring ring = {0, 0};
       const unsigned char* wp = a.w;
       for (int chain = 0; chain < a.n_chains; ++chain) {
@@ -276,10 +355,38 @@ __global__ void __launch_bounds__(kThreads, 1) narrow_kernel(const Args a) {
           wp += conv_bytes;
         }
       }
+    } else if (tid == kConsumers + 32 && a.cluster > 1) {
+      // ---- exchange thread: the edge rows after every plane write ----
+      const uint32_t bars = smem_addr(xbar), p0 = smem_addr(smem);
+      const uint32_t other = rank ^ 1;
+      const int n_x = a.n_chains * 2 * a.n_dil;
+      // rank 0 sends its last `reach` rows into the guard rows above rank
+      // 1's first row; rank 1 its first rows into those below rank 0's last
+      const int src = rank == 0 ? kGuard + R - a.reach : kGuard;
+      const int dst = rank == 0 ? kGuard - a.reach : kGuard + R;
+      for (int e = 0; e < n_x; ++e) {
+        const uint32_t i = 8 * (e & 1), ph = (e >> 1) & 1;
+        mbar_arrive_expect_tx(&xbar[kReady + (e & 1)], a.reach * C * 4);
+        mbar_wait_cluster(bars + 8 * kWritten + i, ph);
+        // the neighbour has drained exchange e - 1: its guard rows are free
+        if (e > 0) mbar_wait_cluster(bars + 8 * kMaySend + 8 * ((e - 1) & 1), ((e - 1) >> 1) & 1);
+        if (a.reach > 0)
+          for (int j = 0; j < C / 4; ++j)
+            bulk_copy_to_cluster(map_to_rank(p0 + (j * rows + dst) * 16, other),
+                                 p0 + (j * rows + src) * 16, a.reach * 16,
+                                 map_to_rank(bars + 8 * kReady + i, other));
+        mbar_wait_cluster(bars + 8 * kDrained + i, ph);
+        if (e < n_x - 1) mbar_arrive_cluster(map_to_rank(bars + 8 * kMaySend + i, other));
+      }
+      // no block leaves while its neighbour may still copy into it or be
+      // read by its copies: each says so once its consumers have drained
+      // the last exchange (the copies sent to it have landed by then)
+      mbar_arrive_cluster(map_to_rank(bars + 8 * kLeave, other));
+      mbar_wait_cluster(bars + 8 * kLeave, 0);
     }
   } else {
     // ---- consumers ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
     const int wg = tid / 128;
     const int warp = (tid % 128) / 32, lane = tid % 32;
     const int gr = lane / 4, qd = lane % 4;
@@ -288,23 +395,27 @@ __global__ void __launch_bounds__(kThreads, 1) narrow_kernel(const Args a) {
     // row of (band b, half h): r_lane + 64 * b + 8 * h; channel of
     // (j, e): 8 * j + 2 * qd + e; register 4 * j + 2 * h + e
     const int r_lane = 64 * NB * wg + 16 * warp + gr;
-    // time of buffer row 0: `halo` rows before the block's tile
-    const int g0 = blockIdx.x * a.tile - a.halo;
+    // time of buffer row 0: the cluster's buffer starts `halo` rows before
+    // its tile, this block's rows R * rank further on
+    const int g0 = ti * a.tile - a.halo + R * rank;
     const int t_lane = g0 + r_lane;
     // the thread's 8 bytes in its row 0, channels 2 qd and 2 qd + 1 (depth
-    // group qd / 2) of the big plane; channels 8 j on: 2 j groups further
+    // group qd / 2) of the plane; channels 8 j on: 2 j groups further
     const uint32_t slot =
         smem_addr(smem) + ((qd >> 1) * rows + kGuard + r_lane) * 16 + (qd & 1) * 8;
-    const uint64_t a_desc = operand_desc(smem + (kGuard + 64 * NB * wg) * 16, rows);
+    // its A value: row r_lane, channel qd (depth group 0)
+    const unsigned char* frag = smem + (kGuard + r_lane) * 16 + qd * 4;
+    const uint32_t bars = smem_addr(xbar);
     // the batch row's channel 2 qd
     const size_t io_off = ((size_t)blockIdx.y * C + 2 * qd) * T;
     const IO* x = static_cast<const IO*>(a.x);
     IO* out = static_cast<IO*>(a.out);
     // the rows this block stores, in the thread's rows
-    const int r_lo = a.halo - r_lane, r_hi = r_lo + a.tile;
+    const int r_lo = a.halo - R * rank - r_lane, r_hi = r_lo + a.tile;
     const float inv = 1.f / (float)a.n_chains;
     const float* bias = a.bias;
     Ring ring = {0, 0};
+    Exchange xch = {0, a.cluster == 1};
     float y[NB][NREG];
 
     for (int chain = 0; chain < a.n_chains; ++chain) {
@@ -336,22 +447,21 @@ __global__ void __launch_bounds__(kThreads, 1) narrow_kernel(const Args a) {
         for (int h = 0; h < 2; ++h)
 #pragma unroll
           for (int j = 0; j < C / 8; ++j)
-            store_act(slot + (2 * j * rows + 64 * b + 8 * h) * 16, plane,
-                      y[b][4 * j + 2 * h], y[b][4 * j + 2 * h + 1], slope);
-      fence_async_proxy();
-      consumer_sync();
+            st_shared2(slot + (2 * j * rows + 64 * b + 8 * h) * 16,
+                       leaky(y[b][4 * j + 2 * h], slope),
+                       leaky(y[b][4 * j + 2 * h + 1], slope));
+      xch.publish(bars, lane);
 
       for (int di = 0; di < a.n_dil; ++di) {
         const bool last = di == a.n_dil - 1;
         // conv_d: m = mask * (b1 + conv_d(plane)); plane = leaky(m)
         float m[NB][NREG];
         init_bias<C, NB>(m, bias, qd);
-        conv_products<C, NB>(m, a_desc, K, a.dil[di], ring_buf, full, empty, S, ring,
-                             lane);
+        conv_products<C, NB>(m, frag, K, a.dil[di], ring_buf, full, empty, S, ring, lane);
         bias += C;
 #pragma unroll
         for (int b = 0; b < NB; ++b) acc_fence(m[b]);
-        consumer_sync();  // every warpgroup's products have read the plane
+        xch.drain(bars, tid);
 #pragma unroll
         for (int b = 0; b < NB; ++b)
 #pragma unroll
@@ -360,12 +470,11 @@ __global__ void __launch_bounds__(kThreads, 1) narrow_kernel(const Args a) {
             const bool inside = t >= 0 && t < T;
 #pragma unroll
             for (int j = 0; j < C / 8; ++j)
-              store_act(slot + (2 * j * rows + 64 * b + 8 * h) * 16, plane,
-                        inside ? m[b][4 * j + 2 * h] : 0.f,
-                        inside ? m[b][4 * j + 2 * h + 1] : 0.f, slope);
+              st_shared2(slot + (2 * j * rows + 64 * b + 8 * h) * 16,
+                         inside ? leaky(m[b][4 * j + 2 * h], slope) : 0.f,
+                         inside ? leaky(m[b][4 * j + 2 * h + 1], slope) : 0.f);
           }
-        fence_async_proxy();
-        consumer_sync();
+        xch.publish(bars, lane);
 
         // conv_1: y = mask * (y + (b2 + conv_1(plane))); plane = leaky(y).
         // The sums start from the bias, as conv_d's, and meet the state
@@ -373,11 +482,11 @@ __global__ void __launch_bounds__(kThreads, 1) narrow_kernel(const Args a) {
         // add rounds at y's magnitude (on the card, 2.8e-5 of the largest
         // value apart from the plain chain at C = 64, K = 11; 3.6e-6 so)
         init_bias<C, NB>(m, bias, qd);
-        conv_products<C, NB>(m, a_desc, K, 1, ring_buf, full, empty, S, ring, lane);
+        conv_products<C, NB>(m, frag, K, 1, ring_buf, full, empty, S, ring, lane);
         bias += C;
 #pragma unroll
         for (int b = 0; b < NB; ++b) acc_fence(m[b]);
-        consumer_sync();  // every warpgroup's products have read the plane
+        xch.drain(bars, tid);
 #pragma unroll
         for (int b = 0; b < NB; ++b)
 #pragma unroll
@@ -392,16 +501,13 @@ __global__ void __launch_bounds__(kThreads, 1) narrow_kernel(const Args a) {
               y[b][4 * j + 2 * h] = y0;
               y[b][4 * j + 2 * h + 1] = y1;
               if (!last)
-                store_act(slot + (2 * j * rows + 64 * b + 8 * h) * 16, plane, y0, y1,
-                          slope);
+                st_shared2(slot + (2 * j * rows + 64 * b + 8 * h) * 16, leaky(y0, slope),
+                           leaky(y1, slope));
             }
           }
-        // the last conv_1 of a chain wrote no plane: the next chain's load
-        // is followed by its own barrier
-        if (!last) {
-          fence_async_proxy();
-          consumer_sync();
-        }
+        // the last conv_1 of a chain writes no plane: the next chain's load
+        // is followed by its own exchange
+        if (!last) xch.publish(bars, lane);
       }
 
       // the chain's rows into the output: one chain is stored as it is;
@@ -445,13 +551,27 @@ __global__ void __launch_bounds__(kThreads, 1) narrow_kernel(const Args a) {
 template <int C, typename IO>
 cudaError_t launch(const Args& a, int batch, cudaStream_t stream) {
   constexpr int rows = kBlockElems / C + 2 * kGuard;
-  const int smem = 2 * rows * C * 4 + a.stages * kStageBytes + 2 * kMaxStages * 8;
+  const int smem = rows * C * 4 + a.stages * kStageBytes + kBarriers * 8;
   cudaError_t err = cudaFuncSetAttribute(
       narrow_kernel<C, IO>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.length + a.tile - 1) / a.tile, batch);
-  narrow_kernel<C, IO><<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
+  const dim3 grid(a.cluster * ((a.length + a.tile - 1) / a.tile), batch);
+  if (a.cluster == 1) {  // lone blocks: a plain launch (a block is its own cluster)
+    narrow_kernel<C, IO><<<grid, kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
+  }
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = a.cluster;
+  attr.val.clusterDim.y = attr.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, narrow_kernel<C, IO>, a);
 }
 
 template <typename IO>
@@ -471,19 +591,22 @@ extern "C" {
 // [B, C, T] -> out, out = the mean of the chains' outputs (one chain: its
 // output). C is 16, 32 or 64 (the wrapper pads); x and out both bf16
 // (io_bf16, one chain only) or both f32. w: the weight images packed by
-// ops/resblock.py:pack_narrow; bias f32 [n_convs][C]. tile, halo, stages:
-// from ops/resblock.py:narrow_plan (a block's buffer of 16384 / C rows
-// stores tile = that - 2 * halo rows; no tap reaches over 32 rows; stages
-// 16 KB ring stages). One block per (tile, batch row).
+// ops/resblock.py:pack_narrow; bias f32 [n_convs][C]. cluster, tile, halo,
+// reach, stages: from ops/resblock.py:narrow_plan (the cluster's 1 or 2
+// blocks share a buffer of cluster * 16384 / C rows and store tile = that -
+// 2 * halo rows; no tap reaches over reach <= 128 rows; stages 16 KB ring
+// stages). One cluster per (tile, batch row).
 int rvc_narrow_chain(const void* x, int io_bf16, void* out, const void* w,
                      const float* bias, int batch, int channels, int length,
-                     int tile, int halo, int stages, int n_chains, const int* ks,
-                     int n_dil, const int* dil, float slope, void* stream) {
+                     int cluster, int tile, int halo, int reach, int stages,
+                     int n_chains, const int* ks, int n_dil, const int* dil, float slope,
+                     void* stream) {
   if (n_chains < 1 || n_chains > kMaxChains || (io_bf16 && n_chains != 1) ||
       n_dil < 1 || n_dil > kMaxDil || batch < 1 || batch > 65535 || length < 1 ||
-      tile < 1 || halo < 0 || stages < 2 || stages > kMaxStages ||
+      cluster < 1 || cluster > 2 || tile < 1 || halo < 0 || reach < 0 ||
+      reach > kGuard || stages < 2 || stages > kMaxStages ||
       (channels != 16 && channels != 32 && channels != 64) ||
-      tile + 2 * halo > kBlockElems / channels)
+      tile + 2 * halo > cluster * (kBlockElems / channels))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.x = x;
@@ -491,8 +614,10 @@ int rvc_narrow_chain(const void* x, int io_bf16, void* out, const void* w,
   a.w = static_cast<const unsigned char*>(w);
   a.bias = bias;
   a.length = length;
+  a.cluster = cluster;
   a.tile = tile;
   a.halo = halo;
+  a.reach = reach;
   a.stages = stages;
   a.n_chains = n_chains;
   a.n_dil = n_dil;
@@ -502,7 +627,7 @@ int rvc_narrow_chain(const void* x, int io_bf16, void* out, const void* w,
   for (int c = 0; c < n_chains; ++c) {
     if (ks[c] < 1 || ks[c] % 2 == 0) return (int)cudaErrorInvalidValue;
     for (int i = 0; i < n_dil; ++i)
-      if (dil[i] < 1 || ks[c] / 2 * dil[i] > kGuard) return (int)cudaErrorInvalidValue;
+      if (dil[i] < 1 || ks[c] / 2 * dil[i] > reach) return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return (int)(io_bf16 ? launch_io<__nv_bfloat16>(a, batch, channels, st)

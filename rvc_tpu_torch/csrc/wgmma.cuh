@@ -390,45 +390,55 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[88], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
-// The same product for N = 16, 32 and 64 (resblock_narrow.cu: time on the
-// M side, the output channels on the N side); accumulator layout as above.
-__device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t a,
-                                           uint64_t b, int scale_d) {
+// d (64 x N, f32) += a (64 x 8) * b^T (N x 8) for N = 16, 32 and 64
+// (resblock_narrow.cu: time on the M side, the output channels on the N
+// side), A tf32 from REGISTERS, B K-major tf32 from shared memory; the
+// accumulator is laid out as above. Thread `t` of the warpgroup holds
+//   a[i] = A[16 * (t / 32) + (t % 32) / 4 + 8 * (i % 2)][t % 4 + 4 * (i / 2)]
+// (CUTLASS's SM90 ..._TF32TF32_RS_TN atoms), the rows of its accumulator.
+// The registers are read while the product runs: they may be written again
+// only after a wgmma_wait that retires it, and a wgmma_fence lies between
+// their last write and the product.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[8], const uint32_t (&a)[4],
+                                              uint64_t b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1;\n}\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a,
-                                           uint64_t b, int scale_d) {
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                              uint64_t b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1;\n}\n"
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a,
-                                           uint64_t b, int scale_d) {
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t b) {
   asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1;\n}\n"
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -437,7 +447,7 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
 // d (64 x N, f32) += a (64 x 16) * b^T (N x 16), both operands bf16 and

@@ -267,7 +267,8 @@ class ChainBlock(nn.Module):
         return self._folded.get(list(self.parameters()), "folded", fold)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """One chain through K2 (``resblock_chain``) at the block's slope."""
+        """One chain through ``resblock_chain`` (the narrow kernel or K2, as
+        ``chain_route`` says) at the block's slope."""
         return resblock_chain(x, *self.chain_weights(), self.dilations,
                               slope=self.slope, cache=self.packed)
 

@@ -3,7 +3,7 @@
 
 The NSF decoder without the sine source and its noise convs: transposed-conv
 upsampling with padding (k - u) // 2 and no output padding, each stage tail
-through ``nsf._resblock_stage`` (K1 for C <= 128, K2 per chain above; looked
+through ``nsf._resblock_stage`` (routed as the NSF decoder's; looked
 up on the module at each call, so a hook on it sees both decoders), with the
 stage tails' packed weights cached per stage as the NSF decoder does.
 """

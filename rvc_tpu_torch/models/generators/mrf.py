@@ -7,9 +7,8 @@ that channel. Each stage tail is the mean over MRF blocks, each a chain of
 layers ``x + conv2(lrelu(conv1(lrelu(x))))`` over the dilations: to the
 operation a HiFi-GAN ResBlock chain, so the stage goes through the same
 dispatch as the NSF decoder's (``nsf._resblock_stage``, looked up at each
-call): K1 ``mrf_stage`` in one launch for bf16 at C <= 128, K2
-``resblock_chain`` per chain at C = 256 and in f32. The JAX package runs
-the same function through plain convolutions.
+call, routed by ``ops.resblock.stage_route``). The JAX package runs the
+same function through plain convolutions.
 
 Parameter names are the reference's (``dec.upsamples.{i}``,
 ``dec.mrfs.{i}.{j}.layers.{k}.conv1`` / ``.conv2``, ``dec.m_source.l_linear``).

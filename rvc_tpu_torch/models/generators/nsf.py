@@ -2,12 +2,15 @@
 
 A sine excitation at the output rate is injected, through strided noise
 convs, after every transposed-conv upsample. Each stage tail runs through
-the hand-written kernels of ``ops/resblock.py``: stages with C <= 128
-through ``mrf_stage`` (in bf16 one launch for all chains), wider stages as
-``resblock_chain`` per chain, which at the 48 kHz serving shapes is the
-split the JAX gates make (K1 for C = 128, 64, 32; K2 for C = 256). The
-kernels' packed weights are cached (per stage for K1, per chain for K2), so
-a second conversion folds and packs nothing.
+the hand-written kernels of ``ops/resblock.py``, as ``stage_route`` says:
+one launch of K1 (bf16) or of the narrow chain kernel (f32) for the whole
+stage where that kernel's planner takes it, else each chain on its own
+(``resblock_chain``: the narrow kernel or K2, as ``chain_route`` says),
+which at the 48 kHz serving shapes is the split the JAX gates make (K1 for
+C = 128, 64, 32; K2 for C = 256). Every config the JAX package takes runs
+on the kernels. The kernels' packed weights are cached (per stage for K1
+and the narrow kernel, per chain otherwise), so a second conversion folds
+and packs nothing.
 """
 
 from __future__ import annotations
@@ -18,22 +21,21 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ...ops.resblock import WeightCache, mrf_stage, resblock_chain
+from ...ops.resblock import WeightCache, mrf_stage
 from ..commons import (ChainBlock, Conv1d, ConvTranspose1d, ResBlock,
                        leaky_relu, source_downsample_geometry)
 from .sine import SineGenerator
-
-MRF_MAX_CHANNELS = 128
 
 
 def _resblock_stage(x: torch.Tensor, blocks: Sequence[ChainBlock],
                     cache: Optional[WeightCache] = None) -> torch.Tensor:
     """One decoder stage tail: the mean over the parallel residual chains
     (``ResBlock``s, or the MRF decoder's ``MRFBlock``s: the same function).
-    ``cache`` keeps the stage's packed weights for ``mrf_stage``."""
+    Blocks that share their dilations and slope go to ``mrf_stage``, which
+    routes the stage (``stage_route``); ``cache`` keeps its packed weights.
+    Blocks that differ run one by one."""
     dil0, slope = blocks[0].dilations, blocks[0].slope
-    same = all(blk.dilations == dil0 and blk.slope == slope for blk in blocks)
-    if x.shape[1] <= MRF_MAX_CHANNELS and same:
+    if all(blk.dilations == dil0 and blk.slope == slope for blk in blocks):
         return mrf_stage(x.contiguous(), [blk.chain_weights() for blk in blocks],
                          [blk.kernel_size for blk in blocks], dil0,
                          slope=slope, cache=cache)

@@ -6,9 +6,10 @@ latent (``mel_conv``), and refined through stages that resize linearly by
 the stage's rate, join a strided-conv downsample of the raw source, and
 run a ``ParallelResBlock``: an input conv, then three branches of AdaIN
 noise, one residual chain at slope 0.2 and AdaIN again, averaged. Each
-branch's chain runs through K2 ``resblock_chain(..., slope=0.2)`` (the
-branches start from their own noisy inputs, so K1, which runs every chain
-of a stage on one input, does not fit).
+branch's chain runs through ``resblock_chain(..., slope=0.2)``: the
+narrow chain kernel or K2, as ``chain_route`` says (the branches start
+from their own noisy inputs, so K1, which runs every chain of a stage on
+one input, does not fit).
 
 As in the JAX package, the decoder keeps ``upsample_initial_channel`` 512
 whatever the configuration says; ``gin_channels`` is the speaker

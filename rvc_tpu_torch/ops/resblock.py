@@ -21,14 +21,24 @@ which stores 2 * halo rows fewer than it computes; a block fetches each
 conv_1 once and each conv_d twice from L2.
 K2 (``csrc/resblock_chain.cu``, wide stages) runs a chain as two launches
 of one ``wgmma`` 3xTF32 conv kernel per dilation, the output channels on
-the M side in blocks of 128 rows. The narrow chain kernel
+the M side in blocks of 128 rows; a conv whose reach no time tile's shared
+memory holds runs as runs of taps that add into one f32 sum
+(``conv_taps``), so K2 takes every chain. The narrow chain kernel
 (``csrc/resblock_narrow.cu``, C <= 64) runs a whole chain per time tile in
-one launch, 3xTF32 with time on the M side and C_out = 16, 32 or 64 on the
-N side, the halo recomputed (``narrow_plan`` / ``pack_narrow``); it takes
-both routes where it wins (``NARROW_ROUTE``): ``resblock_chain`` at those
+one launch, 3xTF32 with time on the M side (A from registers) and C_out =
+16, 32 or 64 on the N side, the halo recomputed once per cluster of 1 or 2
+blocks (``narrow_plan`` / ``pack_narrow``): ``resblock_chain`` at those
 widths, and an f32 ``mrf_stage`` in one launch that sums the chains and
-scales by 1/n. An f32 stage wider than that runs its chains through K2,
-then takes the mean.
+scales by 1/n.
+
+Which kernel runs is the routes' choice, and nothing else's:
+``stage_route`` gives a stage tail to K1 (bf16) or to the narrow kernel
+(f32, where ``NARROW_ROUTE`` sends the width) in one launch where that
+kernel's planner takes it, and otherwise to its chains one by one (then
+the mean in f32); ``chain_route`` gives a chain to the narrow kernel where
+``NARROW_ROUTE`` sends the width and its planner takes the chain, else to
+K2. So every config the JAX package converts runs on a kernel; a failed
+build or launch raises.
 
 Both wrappers are ``torch.autograd.Function``s, on the card and on the CPU.
 Their backward is what the JAX package's ``custom_vjp`` does: it recomputes
@@ -42,6 +52,7 @@ kernel, so neither has one here.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -82,17 +93,33 @@ CONV_MAX_STAGES = 4
 # the narrow chain kernel: widths it is built for; rows x channels of a
 # block's buffer (two consumer warpgroups, 64 state and 64 conv_d registers
 # a thread); bytes of a weight ring stage and the ring's greatest depth;
-# zero guard rows above and below its planes (the most a tap may reach);
-# threads and registers (setmaxnreg) of the consumers and of the producer's
-# warpgroup
+# zero guard rows above and below its plane (the most a tap may reach);
+# blocks of a cluster that share one buffer, by width; threads and
+# registers (setmaxnreg) of the consumers and of the producer's warpgroup;
+# the ring's and the halo exchange's barriers
 NARROW_CHANNELS = (16, 32, 64)
 NARROW_BLOCK_ELEMS = 16_384
 NARROW_STAGE_BYTES = 16_384
 NARROW_MAX_STAGES = 6
-NARROW_GUARD = 32
-NARROW_CONSUMERS, NARROW_CONSUMER_REGS = 256, 232
-NARROW_PRODUCERS, NARROW_PRODUCER_REGS = 128, 40
+NARROW_GUARD = 128
+NARROW_CLUSTERS = (1, 2)
+# what a block of a 2-block cluster costs over a lone block's (the halo
+# exchange after every conv): the planner weighs each cluster size's waves
+# of blocks by it. Measured on an H100 (tools/narrow_ab.py, PERF.md §6):
+# at C = 32, T = 511 360, a cluster of 2 ran 12 % slower per wave at K = 3
+# and 6 % at K = 11
+NARROW_EXCHANGE_COST = 0.1
+# the least share of a 2-block cluster's rows that a chain must leave
+# stored for ``chain_route`` to give it to the narrow kernel: the chain's
+# halo is recomputed, and its reach copied after every conv. Measured on
+# an H100 (chip_smoke.py phase `kernels`, PERF.md §6): at C = 64 the
+# narrow kernel beat K2 with 60 % stored (K = 3, d = 99; K = 11, d = 1, 3,
+# 5, 7) and lost with 56 % (K = 15, d = 13) or less
+NARROW_MIN_SHARE = 0.6
+NARROW_CONSUMERS, NARROW_CONSUMER_REGS = 256, 240
+NARROW_PRODUCERS, NARROW_PRODUCER_REGS = 128, 24
 NARROW_ACC_REGS = 128
+NARROW_BARRIERS = 2 * NARROW_MAX_STAGES + 9
 # Which hand-written kernel takes a chain (``resblock_chain``) and an f32
 # stage tail (``mrf_stage``) at each width the narrow kernel is built for,
 # by I/O dtype: "narrow", or "wide" (K2 per chain). Any other width takes
@@ -153,6 +180,20 @@ def resblock_chain_plain(x, w1s, b1s, w2s, b2s, dilations, slope: float = 0.1):
     return y.to(x.dtype)
 
 
+def _memo(fn):
+    """``fn`` (a pure planner or route) computed once per arguments, lists
+    taken as tuples: the wrappers ask on every call of a host-bound path.
+    A refusal (ValueError) is not kept."""
+    cached = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def memoised(*args, **kwargs):
+        def key(v):
+            return tuple(v) if isinstance(v, list) else v
+        return cached(*map(key, args), **{k: key(v) for k, v in kwargs.items()})
+    return memoised
+
+
 def _halo(kernel_sizes: Sequence[int], dilations: Sequence[int]) -> int:
     return max((k - 1) // 2 * sum(d + 1 for d in dilations)
                for k in kernel_sizes)
@@ -182,6 +223,7 @@ class StagePlan(NamedTuple):
     regs: int
 
 
+@_memo
 def stage_plan(channels: int, kernel_sizes: Sequence[int],
                dilations: Sequence[int]) -> StagePlan:
     """K1's plan, or ValueError where the stage does not fit the kernel.
@@ -221,16 +263,18 @@ def stage_plan(channels: int, kernel_sizes: Sequence[int],
                      MRF_STATE_REGS + MRF_ACC_REGS)
 
 
-def conv_tile(length: int, blocks_per_tile: int) -> int:
+def conv_tile(length: int, blocks_per_tile: int,
+              tiles: Sequence[int] = CONV_TILES) -> int:
     """The time tile of K2's conv kernel for a signal of ``length`` steps,
     ``blocks_per_tile`` blocks (channel blocks x batch) on each tile: the
-    one whose waves of 132 blocks cover the least time, the smaller on a
-    tie (a block takes an SM to itself)."""
+    one of ``tiles`` whose waves of 132 blocks cover the least time, the
+    smaller on a tie (a block takes an SM to itself)."""
     def cost(tile):
         return -(-(-(-length // tile) * blocks_per_tile) // H100_SMS) * tile
-    return min(CONV_TILES, key=cost)
+    return min(tiles, key=cost)
 
 
+@_memo
 def conv_plan(kernel_size: int, dilation: int, tile: int) -> Tuple[int, int, int]:
     """K2's conv kernel at one (K, d, time tile): (rows of an activation
     tile, weight ring stages, shared-memory bytes), stages 0 when not even
@@ -243,6 +287,42 @@ def conv_plan(kernel_size: int, dilation: int, tile: int) -> Tuple[int, int, int
     if stages < 2:
         return rows, 0, 0
     return rows, stages, fixed + stages * CONV_STAGE_BYTES
+
+
+@_memo
+def conv_taps(kernel_size: int, dilation: int) -> Tuple[Tuple[int, int], ...]:
+    """K2's launches for one conv of ``kernel_size`` taps at ``dilation``:
+    (first tap, taps) of each. One where the conv's reach fits the conv
+    kernel's shared memory at some time tile; else the fewest runs of
+    consecutive taps, as even as they come, whose reach fits: each is a
+    launch that adds its taps' products into one f32 sum (a lone tap
+    always fits). K2 so takes every odd K at every dilation, as JAX's
+    ``fused_resblock`` does."""
+    n = kernel_size
+    while not conv_plan(n, dilation, min(CONV_TILES))[1]:
+        n -= 1
+    groups = -(-kernel_size // n)
+    base, extra = divmod(kernel_size, groups)
+    runs, first = [], 0
+    for g in range(groups):
+        size = base + (g < extra)
+        runs.append((first, size))
+        first += size
+    return tuple(runs)
+
+
+@_memo
+def conv_launch(taps: int, dilation: int, length: int,
+                blocks_per_tile: int) -> Tuple[int, int]:
+    """(time tile, ring stages) of one K2 launch of ``taps`` taps: the best
+    tile (``conv_tile``) among those whose shared memory holds the taps'
+    reach."""
+    tiles = [t for t in CONV_TILES if conv_plan(taps, dilation, t)[1]]
+    if not tiles:
+        raise ValueError(f"resblock_chain: {taps} taps at dilation {dilation} "
+                         "fit no time tile (conv_taps splits them)")
+    tile = conv_tile(length, blocks_per_tile, tiles)
+    return tile, conv_plan(taps, dilation, tile)[1]
 
 
 def narrow_channels(channels: int) -> int:
@@ -265,30 +345,41 @@ def narrow_route(channels: int, dtype: torch.dtype) -> str:
 
 class NarrowPlan(NamedTuple):
     """The narrow kernel's geometry for one launch: channels it runs at,
-    rows of a block's buffer, rows at each end of it that the chains spoil,
-    rows a block stores, weight ring stages, shared-memory bytes,
-    accumulator registers a consumer thread."""
+    blocks of a cluster, rows of a block's buffer, rows at each end of the
+    cluster's buffer that the chains spoil, the furthest a tap reaches (the
+    edge rows a block sends its neighbour after each plane write), rows a
+    cluster stores, weight ring stages, shared-memory bytes, accumulator
+    registers a consumer thread."""
     cp: int
+    cluster: int
     rows: int
     halo: int
+    reach: int
     tile: int
     stages: int
     smem: int
     regs: int
 
 
+@_memo
 def narrow_plan(channels: int, kernel_sizes: Sequence[int],
-                dilations: Sequence[int]) -> NarrowPlan:
+                dilations: Sequence[int], length: int = 0, batch: int = 1,
+                cluster: Optional[int] = None) -> NarrowPlan:
     """The narrow kernel's plan for chains of ``kernel_sizes`` over
-    ``dilations`` (one launch), or ValueError where they do not fit it.
+    ``dilations`` (one launch on [batch, channels, length]), or ValueError
+    where they do not fit it.
 
     A block's two consumer warpgroups keep the state of 16384 / cp rows and
     conv_d's sums in 64 registers a thread each, and run every conv of
-    every chain on all rows of one pair of f32 planes (the raw values and
-    their tf32_small parts) between 32 zero guard rows above and below; no
-    tap may reach further. A chain spoils ``halo`` rows at each end of the
-    buffer, so a block stores rows - 2 * halo. Shared memory holds the two
-    planes, the ring of 16 KB weight stages and the barriers."""
+    every chain on all rows of one f32 plane between 128 guard rows above
+    and below; no tap may reach further. The blocks of a cluster hold
+    consecutive rows of one buffer and send the ``reach`` rows at their
+    ends into their neighbours' guard rows after every plane write. A chain
+    spoils ``halo`` rows at each end of the cluster's buffer, so a cluster
+    stores cluster * rows - 2 * halo. Shared memory holds the plane, the
+    ring of 16 KB weight stages and the barriers. The cluster size (1 or 2)
+    is the one whose waves of blocks over the card cost least, a 2-block
+    cluster's weighed by ``NARROW_EXCHANGE_COST``; ``cluster`` forces one."""
     if any(k < 1 or k % 2 == 0 for k in kernel_sizes) or any(d < 1 for d in dilations):
         raise ValueError("narrow chain: kernel sizes must be odd, dilations >= 1")
     if not (1 <= len(kernel_sizes) <= MRF_MAX_CHAINS
@@ -299,15 +390,62 @@ def narrow_plan(channels: int, kernel_sizes: Sequence[int],
     rows = NARROW_BLOCK_ELEMS // cp
     halo = _halo(kernel_sizes, dilations)
     reach = max(kernel_sizes) // 2 * max(dilations)
-    tile = rows - 2 * halo
-    fixed = 2 * (rows + 2 * NARROW_GUARD) * cp * 4 + 2 * NARROW_MAX_STAGES * 8
+    fixed = (rows + 2 * NARROW_GUARD) * cp * 4 + NARROW_BARRIERS * 8
     stages = min(NARROW_MAX_STAGES, (SMEM_LIMIT - fixed) // NARROW_STAGE_BYTES)
-    if tile < 1 or stages < 2 or reach > NARROW_GUARD:
+
+    def cost(n):
+        tile = n * rows - 2 * halo
+        waves = -(-n * batch * -(-max(length, 1) // tile) // H100_SMS)
+        return waves * (1 + NARROW_EXCHANGE_COST * (n - 1)), n
+    sizes = [n for n in ((cluster,) if cluster else NARROW_CLUSTERS)
+             if n * rows - 2 * halo >= 1]
+    if not sizes or stages < 2 or reach > NARROW_GUARD:
         raise ValueError(f"narrow chain: kernel sizes {tuple(kernel_sizes)} with "
-                         f"dilations {tuple(dilations)} do not fit a block of "
-                         f"{rows} rows at C={cp}")
-    return NarrowPlan(cp, rows, halo, tile, stages,
+                         f"dilations {tuple(dilations)} do not fit "
+                         f"{max(NARROW_CLUSTERS)} blocks of {rows} rows at C={cp}")
+    n = min(sizes, key=cost)
+    return NarrowPlan(cp, n, rows, halo, reach, n * rows - 2 * halo, stages,
                       fixed + stages * NARROW_STAGE_BYTES, NARROW_ACC_REGS)
+
+
+def _fits(plan: Callable, *args) -> bool:
+    try:
+        plan(*args)
+    except ValueError:
+        return False
+    return True
+
+
+@_memo
+def stage_route(channels: int, dtype: torch.dtype, kernel_sizes: Sequence[int],
+                dilations: Sequence[int]) -> str:
+    """The kernel that takes a stage tail (``mrf_stage``): "k1" (one launch
+    of K1, bf16), "narrow" (one launch of the narrow kernel, f32, where
+    ``NARROW_ROUTE`` sends the width), or "chains" (each chain through
+    ``resblock_chain``, then the mean in f32) where that kernel's planner
+    refuses the stage."""
+    if dtype != torch.float32:
+        return "k1" if _fits(stage_plan, channels, kernel_sizes, dilations) else "chains"
+    if (narrow_route(channels, dtype) == "narrow"
+            and _fits(narrow_plan, channels, kernel_sizes, dilations)):
+        return "narrow"
+    return "chains"
+
+
+@_memo
+def chain_route(channels: int, dtype: torch.dtype, kernel_size: int,
+                dilations: Sequence[int]) -> str:
+    """The kernel that takes one chain (``resblock_chain``): "narrow" where
+    ``NARROW_ROUTE`` sends the width, the narrow kernel's planner takes the
+    chain, and a 2-block cluster stores at least ``NARROW_MIN_SHARE`` of
+    its rows; else "wide" (K2, which takes every chain)."""
+    if narrow_route(channels, dtype) != "narrow":
+        return "wide"
+    try:  # the largest cluster holds the most rows: it fits where any does
+        plan = narrow_plan(channels, (kernel_size,), dilations, cluster=max(NARROW_CLUSTERS))
+    except ValueError:
+        return "wide"
+    return "narrow" if plan.tile >= NARROW_MIN_SHARE * plan.cluster * plan.rows else "wide"
 
 
 class WeightCache:
@@ -400,8 +538,10 @@ class PackedStage(NamedTuple):
 
 class PackedChain(NamedTuple):
     """K2's weights of one chain: per conv (conv_d then conv_1 of each
-    dilation) the packed planes, and biases [n_convs, blocks * 128]."""
-    ws: Tuple[torch.Tensor, ...]
+    dilation) the packed planes of each run of taps (``conv_taps``), and
+    biases [n_convs + 1, blocks * 128], the last row zero (the bias of a
+    conv's later runs)."""
+    ws: Tuple[Tuple[torch.Tensor, ...], ...]
     bias: torch.Tensor
 
 
@@ -428,16 +568,19 @@ def pack_narrow(chains, cp: int) -> PackedStage:
     return PackedStage(torch.cat([pack_conv_narrow(w) for w in ws]), bias)
 
 
-def pack_chain(w1s, b1s, w2s, b2s, cp: int) -> PackedChain:
-    ws, bs = [], []
-    for w1, b1, w2, b2 in zip(w1s, b1s, w2s, b2s):
+def pack_chain(w1s, b1s, w2s, b2s, cp: int, dilations: Sequence[int]) -> PackedChain:
+    ws, bs, runs = [], [], []
+    for d, w1, b1, w2, b2 in zip(dilations, w1s, b1s, w2s, b2s):
         ws += [w1, w2]
         bs += [b1.float(), b2.float()]
+        runs += [conv_taps(w1.shape[-1], d), conv_taps(w2.shape[-1], 1)]
     c = ws[0].shape[0]
     rows = -(-cp // CONV_BLOCK) * CONV_BLOCK
+    bias = [F.pad(bi, (0, rows - c)) for bi in bs]
     return PackedChain(
-        tuple(pack_conv_tf32(F.pad(w, (0, 0, 0, cp - c))) for w in ws),
-        torch.stack([F.pad(bi, (0, rows - c)) for bi in bs]).contiguous())
+        tuple(tuple(pack_conv_tf32(F.pad(w[:, :, first:first + n], (0, 0, 0, cp - c)))
+                    for first, n in run) for w, run in zip(ws, runs)),
+        torch.stack(bias + [torch.zeros_like(bias[0])]).contiguous())
 
 
 def _chain_tensors(chains):
@@ -484,7 +627,7 @@ def _conv_fn():
 
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     return _typed(load("resblock_chain"), "rvc_conv_tf32",
-                  [p, i, p, i, p, i, p, p, i, i, i, i, i, i, i, i, i, i, f, p])
+                  [p, i, p, i, p, i, p, p, i, i, i, i, i, i, i, i, i, i, i, f, p])
 
 
 def _narrow_fn():
@@ -493,7 +636,7 @@ def _narrow_fn():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ip = ctypes.POINTER(ctypes.c_int)
     return _typed(load("resblock_narrow"), "rvc_narrow_chain",
-                  [p, i, p, p, p, i, i, i, i, i, i, i, ip, i, ip, f, p])
+                  [p, i, p, p, p, i, i, i, i, i, i, i, i, i, ip, i, ip, f, p])
 
 
 def _chain_direct(y, w1s, b1s, w2s, b2s, dilations, slope):
@@ -589,17 +732,18 @@ def mrf_stage(x, chains, kernel_sizes: Sequence[int],
 
 
 def _mrf_stage_forward(x, chains, kernel_sizes, dilations, slope, cache):
-    """The stage on the card: bf16 through K1; f32 through the narrow kernel
-    or K2 per chain, as ``narrow_route`` says."""
+    """The stage on the card, as ``stage_route`` says: one launch of K1
+    (bf16) or of the narrow kernel (f32), or its chains one by one."""
     if x.device.type == "cpu":
         return mrf_stage_plain(x, chains, dilations, slope)
     _check_input(x, "mrf_stage")
     cache = cache or WeightCache()
-    if x.dtype == torch.float32:
-        if narrow_route(x.shape[1], x.dtype) == "narrow":
-            return _narrow_forward(x, chains, kernel_sizes, dilations, slope, cache)
-        return _stage_wide(x, chains, dilations, slope, cache)
     c = x.shape[1]
+    route = stage_route(c, x.dtype, kernel_sizes, dilations)
+    if route == "narrow":
+        return _narrow_forward(x, chains, kernel_sizes, dilations, slope, cache)
+    if route == "chains":
+        return _stage_chains(x, chains, dilations, slope, cache)
     plan = stage_plan(c, kernel_sizes, dilations)
     packed = cache.get(_chain_tensors(chains), ("stage", plan.cp),
                        lambda: pack_stage(chains, plan.cp))
@@ -610,15 +754,16 @@ def _mrf_stage_forward(x, chains, kernel_sizes, dilations, slope, cache):
     return out if plan.cp == c else out[:, :c].contiguous()
 
 
-def _stage_wide(x, chains, dilations, slope, cache):
-    """An f32 stage through K2: each chain, then the mean in f32."""
-    chain_caches = cache.get(_chain_tensors(chains), ("stage_f32", len(chains)),
+def _stage_chains(x, chains, dilations, slope, cache):
+    """A stage as its chains one by one (each through the routed
+    ``_resblock_chain_forward``), then the mean in f32, in x's dtype."""
+    chain_caches = cache.get(_chain_tensors(chains), ("chains", len(chains)),
                              lambda: tuple(WeightCache() for _ in chains))
     acc = None
-    for chain, chain_cache in zip(chains, chain_caches):
-        y = _chain_wide(x, *chain, dilations, slope, chain_cache)
+    for ch, chain_cache in zip(chains, chain_caches):
+        y = _resblock_chain_forward(x, *ch, dilations, slope, chain_cache).float()
         acc = y if acc is None else acc.add_(y)
-    return acc.div_(len(chains))
+    return acc.div_(len(chains)).to(x.dtype)
 
 
 def _launch_stage(fn, x, plan: StagePlan, packed: PackedStage, kernel_sizes,
@@ -664,21 +809,20 @@ def resblock_chain(x, w1s, b1s, w2s, b2s, dilations: Sequence[int],
 def _narrow_forward(x, chains, kernel_sizes, dilations, slope, cache):
     """One launch of the narrow kernel on x [B, C <= 64, T]: one chain, or
     the mean of several (f32)."""
-    c = x.shape[1]
-    plan = narrow_plan(c, kernel_sizes, dilations)
+    b, c, t = x.shape
+    plan = narrow_plan(c, kernel_sizes, dilations, t, b)
     packed = cache.get(_chain_tensors(chains), ("narrow", plan.cp),
                        lambda: pack_narrow(chains, plan.cp))
     if plan.cp != c:
         x = F.pad(x, (0, 0, 0, plan.cp - c))
-    b, _, t = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):  # the launch acts on the current device
         err = _narrow_fn()(
             x.data_ptr(), int(x.dtype == torch.bfloat16), out.data_ptr(),
             packed.w.data_ptr(), packed.bias.data_ptr(), b, plan.cp, t,
-            plan.tile, plan.halo, plan.stages, len(kernel_sizes),
-            _ints(kernel_sizes), len(dilations), _ints(dilations), slope,
-            torch.cuda.current_stream(x.device).cuda_stream)
+            plan.cluster, plan.tile, plan.halo, plan.reach, plan.stages,
+            len(kernel_sizes), _ints(kernel_sizes), len(dilations), _ints(dilations),
+            slope, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"narrow chain: CUDA error {err} at launch")
     launches["narrow_chain"] += 1
@@ -687,31 +831,30 @@ def _narrow_forward(x, chains, kernel_sizes, dilations, slope, cache):
 
 def _resblock_chain_forward(x, w1s, b1s, w2s, b2s, dilations, slope, cache):
     """The chain on the card through the narrow kernel or K2, as
-    ``narrow_route`` says."""
+    ``chain_route`` says."""
     if x.device.type == "cpu":
         return resblock_chain_plain(x, w1s, b1s, w2s, b2s, dilations, slope)
     _check_input(x, "resblock_chain")
     cache = cache or WeightCache()
-    if narrow_route(x.shape[1], x.dtype) == "narrow":
-        return _narrow_forward(x, [(w1s, b1s, w2s, b2s)], (int(w1s[0].shape[-1]),),
-                               dilations, slope, cache)
+    k = int(w1s[0].shape[-1])
+    if chain_route(x.shape[1], x.dtype, k, dilations) == "narrow":
+        return _narrow_forward(x, [(w1s, b1s, w2s, b2s)], (k,), dilations, slope, cache)
     return _chain_wide(x, w1s, b1s, w2s, b2s, dilations, slope, cache)
 
 
 def _chain_wide(x, w1s, b1s, w2s, b2s, dilations, slope, cache):
-    """K2: two launches of the conv kernel per dilation."""
+    """K2: per dilation, conv_d into an f32 scratch m (leaky(m)), then
+    conv_1 on it with the residual. A conv whose reach fits no time tile
+    runs as runs of taps (``conv_taps``) that add into one f32 sum, the
+    bias with the first; conv_d's sum then stays raw and conv_1 applies the
+    leaky ReLU as it reads m."""
     b, c, t = x.shape
     k = int(w1s[0].shape[-1])
     cp = -(-c // CONV_CHUNK) * CONV_CHUNK
     blocks = -(-cp // CONV_BLOCK)
-    tile = conv_tile(t, blocks * b)
-    plans = [conv_plan(k, d, tile) for d in dilations] + [conv_plan(k, 1, tile)]
-    if not all(p[1] for p in plans):
-        raise ValueError(f"resblock_chain: K={k}, dilations {dilations} do "
-                         "not fit shared memory")
     packed = cache.get(
-        [*w1s, *b1s, *w2s, *b2s], ("chain", cp),
-        lambda: pack_chain(w1s, b1s, w2s, b2s, cp))
+        [*w1s, *b1s, *w2s, *b2s], ("chain", cp, tuple(dilations)),
+        lambda: pack_chain(w1s, b1s, w2s, b2s, cp, dilations))
     if cp != c:
         x = F.pad(x, (0, 0, 0, cp - c))
     fn = _conv_fn()
@@ -720,22 +863,38 @@ def _chain_wide(x, w1s, b1s, w2s, b2s, dilations, slope, cache):
     m = torch.empty((b, cp, t), dtype=torch.float32, device=x.device)
     state = [torch.empty_like(m) for _ in range(min(2, len(dilations) - 1))]
 
-    def conv(i, src, res, dst, d, stages, act):
+    def launch(w, bias, first, n, d, src, res, dst, pre, post):
+        tile, stages = conv_launch(n, d, t, blocks * b)
         err = fn(src.data_ptr(), int(src.dtype == torch.bfloat16),
                  res.data_ptr() if res is not None else None,
                  int(res is not None and res.dtype == torch.bfloat16),
                  dst.data_ptr(), int(dst.dtype == torch.bfloat16),
-                 packed.ws[i].data_ptr(), packed.bias[i].data_ptr(), b, cp,
-                 blocks, t, k, d, tile, stages, act, act, slope, stream)
+                 w.data_ptr(), bias.data_ptr(), b, cp, blocks, t, n, d,
+                 (first - k // 2) * d, tile, stages, pre, post, slope, stream)
         if err != 0:
             raise RuntimeError(f"resblock_chain: CUDA error {err} at launch")
         launches["resblock_chain"] += 1
 
+    def conv(i, d, src, res, dst, pre, post):
+        """Conv i of the chain: dst = post(bias + conv(pre(src))) + res; a
+        conv of several runs of taps sums them in f32 (in dst where it is
+        f32) and takes no post."""
+        runs = conv_taps(k, d)
+        if len(runs) == 1:
+            launch(packed.ws[i][0], packed.bias[i], 0, k, d, src, res, dst, pre, post)
+            return
+        acc = dst if dst.dtype == torch.float32 else torch.empty_like(m)
+        for j, ((first, n), w) in enumerate(zip(runs, packed.ws[i])):
+            last = j == len(runs) - 1
+            launch(w, packed.bias[i if j == 0 else -1], first, n, d, src,
+                   res if j == 0 else acc, dst if last else acc, pre, 0)
+
     y = x
     with torch.cuda.device(x.device):  # the launches act on the current device
         for i, d in enumerate(dilations):
-            conv(2 * i, y, None, m, d, plans[i][1], 1)
+            whole = len(conv_taps(k, d)) == 1
+            conv(2 * i, d, y, None, m, 1, int(whole))
             nxt = out if i == len(dilations) - 1 else state[i % 2]
-            conv(2 * i + 1, m, y, nxt, 1, plans[-1][1], 0)
+            conv(2 * i + 1, 1, m, y, nxt, int(not whole), 0)
             y = nxt
     return out if cp == c else out[:, :c].contiguous()

@@ -45,25 +45,35 @@ def _to_torch_chain(ch):
         [torch.from_numpy(b) for b in b2]
 
 
-@pytest.mark.parametrize("ks,dil", CHAIN_SETS)
+# configs the planner refused while a tap could reach only 32 guard rows
+# and a block recomputed its own halo (ROADMAP C1): they fit now
+WIDER_SETS = [((11,), (1, 7)), ((11,), (6, 6, 6, 6)), ((3, 7, 15), DIL),
+              ((3, 7, 11), (1, 3, 9)), ((3, 7, 11), (1, 3, 5, 7))]
+
+
+@pytest.mark.parametrize("ks,dil", CHAIN_SETS + WIDER_SETS)
 @pytest.mark.parametrize("c", [16, 32, 48, 64])
 def test_narrow_plan_fits_the_block(c, ks, dil):
     """A block's buffer is 16384 / cp rows (two warpgroups of 128 / cp
-    bands of 64 rows), it stores the rows no conv spoils, no tap reaches
-    past the 32 guard rows, and the two f32 planes, a ring of at least two
-    16 KB weight stages and the barriers fit the 232,448 bytes a block may
-    use. The state and conv_d's sums take 128 registers a consumer thread,
-    which leaves at least 64 of its 232, and the warpgroups' registers fit
-    the SM's."""
+    bands of 64 rows); the 1 or 2 blocks of a cluster share one buffer and
+    store the rows no conv spoils; no tap reaches past the 128 guard rows,
+    and ``reach``, the rows a block sends its neighbour, is the furthest
+    any tap reaches. One f32 plane, a ring of at least two 16 KB weight
+    stages and the barriers fit the 232,448 bytes a block may use. The
+    state and conv_d's sums take 128 registers a consumer thread, which
+    leaves at least 64 of its 240 for the A fragments, and the warpgroups'
+    registers fit the SM's."""
     p = rb.narrow_plan(c, ks, dil)
     assert p.cp == rb.narrow_channels(c) and p.cp in rb.NARROW_CHANNELS and p.cp >= c
     assert p.rows * p.cp == rb.NARROW_BLOCK_ELEMS and p.rows % 128 == 0
+    assert p.cluster in rb.NARROW_CLUSTERS
     assert p.halo == max(k // 2 * sum(d + 1 for d in dil) for k in ks)
-    assert p.tile == p.rows - 2 * p.halo and p.tile >= 1
-    assert max(k // 2 * d for k in ks for d in (*dil, 1)) <= rb.NARROW_GUARD == 32
+    assert p.tile == p.cluster * p.rows - 2 * p.halo and p.tile >= 1
+    assert p.reach == max(k // 2 * d for k in ks for d in (*dil, 1))
+    assert p.reach <= rb.NARROW_GUARD == 128 <= p.rows
     assert 2 <= p.stages <= rb.NARROW_MAX_STAGES
-    assert p.smem == (2 * (p.rows + 2 * rb.NARROW_GUARD) * p.cp * 4
-                      + p.stages * rb.NARROW_STAGE_BYTES + 2 * rb.NARROW_MAX_STAGES * 8)
+    assert p.smem == ((p.rows + 2 * rb.NARROW_GUARD) * p.cp * 4
+                      + p.stages * rb.NARROW_STAGE_BYTES + rb.NARROW_BARRIERS * 8)
     assert p.smem <= rb.SMEM_LIMIT
     # one more stage would not fit, or the ring is at its depth
     assert p.stages == rb.NARROW_MAX_STAGES or p.smem + rb.NARROW_STAGE_BYTES > rb.SMEM_LIMIT
@@ -76,11 +86,42 @@ def test_narrow_plan_fits_the_block(c, ks, dil):
     assert rb.NARROW_STAGE_BYTES % (64 * p.cp) == 0
 
 
+@pytest.mark.parametrize("c,t,b,ks,dil,cluster", [
+    (32, 511360, 1, (3,), DIL, 1),           # a short halo: lone blocks, fewer waves
+    (32, 511360, 1, (11,), DIL, 2),          # 10 waves of lone blocks, 9 of pairs
+    (32, 767040, 1, (3, 7, 11), DIL, 2),
+    (64, 255680, 1, (11,), DIL, 2),          # a lone block would store 136 of 256 rows
+    (64, 5760, 8, (3,), DIL, 1),             # two waves either way
+    (64, 1, 1, (11,), (6, 6, 6, 6), 2),      # the halo leaves a lone block no rows
+])
+def test_narrow_plan_picks_the_cluster_with_fewer_waves(c, t, b, ks, dil, cluster):
+    """The cluster size whose waves of blocks over the card's 132 SMs,
+    each block of a pair weighed by 1 + NARROW_EXCHANGE_COST, cost least;
+    a forced size is kept where it fits and refused where it does not."""
+    p = rb.narrow_plan(c, ks, dil, t, b)
+    assert p.cluster == cluster
+
+    def cost(n):
+        tile = n * p.rows - 2 * p.halo
+        if tile < 1:
+            return float("inf")
+        blocks = n * b * -(-t // tile)
+        return -(-blocks // 132) * (1 + rb.NARROW_EXCHANGE_COST * (n - 1))
+    assert cost(cluster) <= cost(3 - cluster)
+    for n in (1, 2):
+        if n * p.rows - 2 * p.halo >= 1:
+            assert rb.narrow_plan(c, ks, dil, t, b, cluster=n).cluster == n
+        else:
+            with pytest.raises(ValueError):
+                rb.narrow_plan(c, ks, dil, t, b, cluster=n)
+
+
 @pytest.mark.parametrize("c,ks,dil", [
     (128, (3, 7, 11), DIL),          # over 64 channels: the wide kernel's
     (256, (3,), DIL),
-    (32, (11,), (1, 7)),             # a tap reaches 35 rows, over the 32 guard rows
-    (64, (11,), (6, 6, 6, 6)),       # the chain spoils more rows than the buffer has
+    (32, (3,), (1, 129)),            # a tap reaches 129 rows, over the 128 guard rows
+    (16, (11,), (30, 30, 30, 30)),   # 150 rows
+    (64, (21,), (9, 9, 9, 9)),       # the chain spoils more rows than a cluster has
     (32, (3,), (1, 1, 1, 1, 1)),     # more dilations than the kernel takes
     (32, (3, 3, 3, 3, 3), (1,)),     # more chains than the kernel takes
     (16, (4,), (1,)),                # an even kernel size
@@ -156,19 +197,22 @@ def test_pack_narrow_orders_convs_and_pads():
                 off += 2 * k * cp * cp
 
 
-def _narrow_tiled(x, chains, ks, dil, slope):
+def _narrow_tiled(x, chains, ks, dil, slope, cluster=None):
     """The narrow kernel's tiling in plain torch, f32: x and the weights
-    padded to the plan's channels; per (batch row, tile) one buffer of
-    ``rows`` rows that starts ``halo`` rows before the tile, with zero
-    guard rows above and below. Every conv computes all rows from one plane
-    (taps past the buffer read the guards), the mask zeroes the rows outside
-    [0, T) after every conv, and each conv's output overwrites the plane.
-    The chains run one after the other; the sum waits in the output, the
-    last chain's store scales by 1 / n, and only rows [halo, halo + tile)
-    of the buffer are stored."""
+    padded to the plan's channels; per (batch row, tile) a cluster of
+    ``plan.cluster`` blocks, each with a plane of ``rows`` rows between
+    zero guard rows, the cluster's buffer starting ``halo`` rows before the
+    tile. Every conv computes all of a block's rows from its plane (taps
+    past its rows read the guard rows), the mask zeroes the rows outside
+    [0, T) after every conv, each conv's output overwrites the plane, and
+    after every plane write each block's ``reach`` edge rows land in its
+    neighbour's guard rows (the rest of the guard rows stay zero). The
+    chains run one after the other; the sum waits in the output, the last
+    chain's store scales by 1 / n, and only rows [halo, halo + tile) of the
+    cluster's buffer are stored."""
     b, c, t = x.shape
-    p = rb.narrow_plan(c, ks, dil)
-    cp, rows, g = p.cp, p.rows, rb.NARROW_GUARD
+    p = rb.narrow_plan(c, ks, dil, t, b, cluster=cluster)
+    cp, rows, g, n_blk = p.cp, p.rows, rb.NARROW_GUARD, p.cluster
     xp = F.pad(x, (0, 0, 0, cp - c))
     padded = []
     for w1s, b1s, w2s, b2s in chains:
@@ -180,46 +224,66 @@ def _narrow_tiled(x, chains, ks, dil, slope):
 
     def conv(plane, w, bias, k, d):
         reach = k // 2 * d
-        assert reach <= g
+        assert reach <= p.reach <= g
         return F.conv1d(plane[:, :, g - reach:g + rows + reach], w, bias, dilation=d)
+
+    def write(planes, values):
+        """Each block's plane = values, then the edge rows to the neighbours."""
+        for plane, v in zip(planes, values):
+            plane[:, :, g:g + rows] = v
+        r = p.reach
+        for lo, hi in zip(planes, planes[1:]):
+            hi[:, :, g - r:g] = lo[:, :, g + rows - r:g + rows]
+            lo[:, :, g + rows:g + rows + r] = hi[:, :, g:g + r]
 
     for ti in range(-(-t // p.tile)):
         g0 = ti * p.tile - p.halo
-        times = torch.arange(g0, g0 + rows)
-        ok = (times >= 0) & (times < t)
+        times = [torch.arange(g0 + i * rows, g0 + (i + 1) * rows) for i in range(n_blk)]
+        oks = [(tm >= 0) & (tm < t) for tm in times]
         lo, cnt = ti * p.tile, min(p.tile, t - ti * p.tile)
         for ci, ((w1s, b1s, w2s, b2s), k) in enumerate(zip(padded, ks)):
-            y = torch.zeros((b, cp, rows))
-            y[:, :, ok] = xp[:, :, times[ok]]
-            plane = torch.zeros((b, cp, rows + 2 * g))
-            plane[:, :, g:g + rows] = leaky(y)
+            ys = []
+            for tm, ok in zip(times, oks):
+                y = torch.zeros((b, cp, rows))
+                y[:, :, ok] = xp[:, :, tm[ok]]
+                ys.append(y)
+            planes = [torch.zeros((b, cp, rows + 2 * g)) for _ in range(n_blk)]
+            write(planes, [leaky(y) for y in ys])
             for d, w1, b1, w2, b2 in zip(dil, w1s, b1s, w2s, b2s):
-                m = conv(plane, w1, b1, k, d) * ok
-                plane[:, :, g:g + rows] = leaky(m)
-                y = (y + conv(plane, w2, b2, k, 1)) * ok
-                plane[:, :, g:g + rows] = leaky(y)
-            rows_out = y[:, :, p.halo:p.halo + cnt]
+                ms = [conv(pl, w1, b1, k, d) * ok for pl, ok in zip(planes, oks)]
+                write(planes, [leaky(m) for m in ms])
+                ys = [(y + conv(pl, w2, b2, k, 1)) * ok
+                      for y, pl, ok in zip(ys, planes, oks)]
+                write(planes, [leaky(y) for y in ys])
+            rows_out = torch.cat(ys, dim=2)[:, :, p.halo:p.halo + cnt]
             prev = out[:, :, lo:lo + cnt] if ci > 0 else 0.0
             scale = 1.0 / len(ks) if ci == len(ks) - 1 else 1.0
             out[:, :, lo:lo + cnt] = (rows_out + prev) * scale
     return out[:, :c]
 
 
-@pytest.mark.parametrize("b,c,t,ks,dil,slope", [
-    (2, 32, 1, (11,), DIL, 0.2),          # T = 1
-    (1, 64, 135, (11,), DIL, 0.2),        # one tile - 1
-    (1, 64, 137, (11,), DIL, 0.2),        # one tile + 1: a last partial tile
-    (2, 48, 300, (7,), DIL, 0.2),         # a padded width, batch 2
-    (1, 16, 2001, (3,), DIL, 0.1),        # the widest buffer, three tiles
-    (2, 32, 1000, (3, 7, 11), DIL, 0.1),  # an f32 stage: the sum over chains, 1/n
-    (1, 16, 2001, (3, 7), (1, 3), 0.1),   # two chains of two dilations
+@pytest.mark.parametrize("b,c,t,ks,dil,slope,cluster", [
+    (2, 32, 1, (11,), DIL, 0.2, None),          # T = 1
+    (1, 64, 391, (11,), DIL, 0.2, 2),           # one cluster's tile - 1
+    (1, 64, 393, (11,), DIL, 0.2, 2),           # one tile + 1: a last partial tile
+    (1, 64, 137, (11,), DIL, 0.2, 1),           # a lone block's tile + 1
+    (2, 48, 300, (7,), DIL, 0.2, None),         # a padded width, batch 2
+    (1, 16, 2001, (3,), DIL, 0.1, None),        # the widest buffer, three tiles
+    (2, 32, 1000, (3, 7, 11), DIL, 0.1, 2),     # an f32 stage: the sum over chains, 1/n
+    (1, 16, 2001, (3, 7), (1, 3), 0.1, 2),      # two chains of two dilations
+    (1, 32, 2500, (3, 7, 15), (1, 3, 9), 0.1, 2),  # a tap reaches 63 rows
+    (1, 64, 900, (11,), (1, 3, 5, 7), 0.2, 2),  # four dilations, 100 rows of halo
 ])
-def test_narrow_tiling_matches_plain(b, c, t, ks, dil, slope):
-    """Tile by tile with the plan's rows, halo, guard rows, masks and the
-    sum over chains in the output, one chain is ``resblock_chain_plain`` and
-    several are ``mrf_stage_plain`` on the whole signal (f32, 1e-6 of the
-    output's magnitude)."""
-    assert [rb.narrow_plan(w, (11,), DIL).tile for w in (64, 32, 16)] == [136, 392, 904]
+def test_narrow_tiling_matches_plain(b, c, t, ks, dil, slope, cluster):
+    """Tile by tile and block by block with the plan's rows, halo, guard
+    rows, edge-row exchange, masks and the sum over chains in the output,
+    one chain is ``resblock_chain_plain`` and several are
+    ``mrf_stage_plain`` on the whole signal (f32, 1e-6 of the output's
+    magnitude)."""
+    assert [rb.narrow_plan(w, (11,), DIL, cluster=2).tile for w in (64, 32, 16)] == \
+        [392, 904, 1928]
+    assert [rb.narrow_plan(w, (11,), DIL, cluster=1).tile for w in (64, 32, 16)] == \
+        [136, 392, 904]
     rng = np.random.default_rng(b * 1000 + c + t)
     x = torch.from_numpy((rng.normal(size=(b, c, t)) * 0.3).astype(np.float32))
     chains = [_to_torch_chain(_chain_np(rng, c, k, dil)) for k in ks]
@@ -227,7 +291,7 @@ def test_narrow_tiling_matches_plain(b, c, t, ks, dil, slope):
         ref = rb.resblock_chain_plain(x, *chains[0], dil, slope)
     else:
         ref = rb.mrf_stage_plain(x, chains, dil, slope)
-    out = _narrow_tiled(x, chains, ks, dil, slope)
+    out = _narrow_tiled(x, chains, ks, dil, slope, cluster)
     assert _rel(ref.numpy(), out.numpy()) <= 1e-6
 
 

@@ -429,16 +429,20 @@ def test_pack_conv_tf32_follows_tile_layout(c_out, c_in, k):
 
 
 def test_pack_chain_pads_channels_and_keeps_the_chain():
-    """A 48-channel chain packs at 64 input channels and one 128-row block;
-    the convs rebuilt from the packed planes give the plain chain."""
+    """A 48-channel chain packs at 64 input channels and one 128-row block,
+    each conv as one run of its K taps (``conv_taps``: every tile holds
+    them), the bias rows followed by a zero row (the bias of a conv's later
+    runs); the convs rebuilt from the packed planes give the plain chain."""
     c, k, cp = 48, 7, 64
     rng = np.random.default_rng(9)
     w1s, b1s, w2s, b2s = _to_torch_chain(_chain_np(rng, c, k, DIL))
-    packed = rb.pack_chain(w1s, b1s, w2s, b2s, cp)
-    assert len(packed.ws) == 2 * len(DIL) and packed.bias.shape == (2 * len(DIL), 128)
+    packed = rb.pack_chain(w1s, b1s, w2s, b2s, cp, DIL)
+    assert len(packed.ws) == 2 * len(DIL) and packed.bias.shape == (2 * len(DIL) + 1, 128)
+    assert not packed.bias[-1].any()
     ws, bs = [], []
-    for i, pw in enumerate(packed.ws):
-        planes = pw.reshape(1, cp // 32, k, 2, 8, 128, 4)
+    for i, runs in enumerate(packed.ws):
+        assert len(runs) == 1
+        planes = runs[0].reshape(1, cp // 32, k, 2, 8, 128, 4)
         w = (planes[:, :, :, 0] + planes[:, :, :, 1]).permute(0, 4, 1, 3, 5, 2)
         w = w.reshape(128, cp, k)
         assert not w[c:].any() and not w[:, c:].any()
@@ -550,7 +554,7 @@ def test_resblock_folds_and_packs_once_for_inference():
         assert all(x is y for pa, pb in zip(a, b) for x, y in zip(pa, pb))
         pack = lambda cw: blk.packed.get(
             [t for part in cw for t in part], ("chain", 32),
-            lambda: rb.pack_chain(*cw, 32))
+            lambda: rb.pack_chain(*cw, 32, DIL))
         p1, p2 = pack(a), pack(blk.chain_weights())
         assert p1 is p2 and blk.packed.builds == 1
         blk.convs1[0].weight_g.mul_(2.0)
