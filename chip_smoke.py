@@ -6,13 +6,15 @@ Phases, in this order, each printing one JSON line:
   env      card name and power limit, torch / CUDA / nvcc / triton versions
   build    compile the CUDA kernels from ``rvc_tpu_torch/csrc`` (nvcc) and
            read ``ptxas -v``: registers and spills of every kernel, and no
-           note that ``wgmma`` products were serialised (C7518-C7520)
+           note that ``wgmma`` products were serialised (C7518-C7520);
+           ``bigru.cu`` is kernel G, RMVPE's BiGRU recurrence
   small    a small fp32 model on the card (kernels) against the same model
            on the CPU (plain versions)
   pipeline full-width 48 kHz bf16 conversion of 10 s of audio through
            ``Pipeline.pipeline`` (RMVPE + HuBERT + retrieval + NSF-HiFi-GAN,
            random weights from numpy seed 0): the warm-up run records the
            shapes the path gives each kernel, the next run the launch counts
+           (every path that runs RMVPE must launch G once a forward)
   stream   ``voice_conversion_fused_stream`` over 4 requests, with the
            launch counts of that run
   files    write the user's files in the reference formats from numpy seed 0
@@ -97,16 +99,27 @@ Phases, in this order, each printing one JSON line:
            ran and times it, the plain version and one library call (for
            the narrow kernel beside cuDNN's f32 chain its bf16 chain and the
            wide kernel K2 at the same shape)
+           G (``bigru``) at every path's (B, T, H, dtype) and at small and
+           other widths (B 1 and 3, T 40 and 1632, H 16, 384, 512, bf16
+           and f32) against the plain step loop (1e-5 f32, 2e-2 bf16, and
+           bf16 against the f32 loop), beside its exchange-only latency
+           floor, the whole FusedBiGRU forward and cuDNN's ``nn.GRU``
   stages   device time of each stage of one conversion (CUDA events)
+  ab       (needs pipeline, windowed) G against the plain step loop it
+           replaced, in turns: the ``rmvpe_model`` stage, the warm 10 s
+           wall and the 150 s CLI wall
   trace    (only when asked for) one conversion under torch.profiler:
-           device busy time, idle share, the heaviest kernels
+           device busy time, idle share, the heaviest kernels, and the
+           device kernels of one conversion with G and with the plain loop
 
     python3 chip_smoke.py env,build,pipeline,kernels   # a subset of the phases
     python3 chip_smoke.py env,build,files,fx,kernels   # the output effects
     python3 chip_smoke.py env,build,files,batch,prep,dist,ui,kernels  # A.13, A.16
     python3 chip_smoke.py env,build,unit   # the kernel checks alone, at the
                                            # serving shapes (and RefineGAN's
-                                           # narrow chains), without the models
+                                           # narrow chains; G at its paths'
+                                           # and small widths), without the models
+    python3 chip_smoke.py env,build,pipeline,files,windowed,ab,trace   # G's A/B
 Then a ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. There is no CPU fallback: without CUDA the script fails.
@@ -115,6 +128,7 @@ the result line. There is no CPU fallback: without CUDA the script fails.
 from __future__ import annotations
 
 import collections
+import contextlib
 import gc
 import glob
 import json
@@ -147,7 +161,17 @@ UNIT_SHAPES = [("stage", 256, 19176, "bfloat16", (3, 7, 11), (1, 3, 5)),
                ("stage", 32, 767040, "float32", (3, 7, 11), (1, 3, 5)),
                *[("chain", c, t, "bfloat16", (k,), (1, 3, 5), 1, 0.2)
                  for c, t in ((64, 255680), (32, 511360)) for k in (3, 7, 11)],
-               ("knn", 799, 65536, 768, 8)]
+               ("knn", 799, 65536, 768, 8),
+               # G: a 10 s conversion and the stream (bf16), the windowed
+               # CLI's host f0 on 150 s, an fp32 conversion, `prep`'s
+               # extract (f32, batch 8, a 4 s bucket)
+               ("bigru", 1, 1632, 256, "bfloat16"), ("bigru", 1, 15104, 256, "float32"),
+               ("bigru", 1, 1632, 256, "float32"), ("bigru", 8, 416, 256, "float32")]
+# G off the path, at small and other widths (in `unit` and `kernels`):
+# (batch, T, H, dtype); H = 384 and 512 read Wh from memory in some rows
+BIGRU_SMALL_SHAPES = [(b, t, h, d) for b in (1, 3) for t in (40, 1632)
+                      for h in (16, 384, 512) for d in ("bfloat16", "float32")]
+UNIT_SHAPES += [("bigru", *sh) for sh in BIGRU_SMALL_SHAPES]
 # off the path: (batch, C, T, kernel sizes, dilations) for stage tails in
 # bf16 (K1) and f32 (the narrow kernel at C <= 64, K2 above): T = 1, 77, one
 # output tile - 1 and + 1 of each kernel at each width, an odd T near 9001;
@@ -189,8 +213,10 @@ KNN_DENSE_ELEMS = 1 << 30
 KNN_CHECK_ROWS = 16384
 # the kernels of the 48 kHz bf16 serving path; the narrow chain kernel
 # takes RefineGAN's narrow chains and the f32 stage tails (fp32 models,
-# validation)
-SERVING_KERNELS = ("mrf_stage", "resblock_chain", "knn_topk")
+# validation); G ``bigru`` runs once in every RMVPE forward
+SERVING_KERNELS = ("mrf_stage", "resblock_chain", "knn_topk", "bigru")
+# RMVPE forwards since the counts were reset (``_count_rmvpe_forwards``)
+_RMVPE_FORWARDS = [0]
 
 
 def emit(obj) -> None:
@@ -318,16 +344,19 @@ def record_path_shapes(fn, grad_shapes=None):
     stage tail (``nsf._resblock_stage``: the NSF, plain and MRF HiFi-GAN
     decoders), [("chain", C, T, dtype, (K,), dilations, batch, slope)] for
     a chain run on its own (``ChainBlock.forward`` outside a stage tail:
-    RefineGAN's), and [("knn", Q, N, D, k)]. Shapes met with gradients on
-    (a training step's) are also appended to ``grad_shapes`` when given."""
+    RefineGAN's), [("knn", Q, N, D, k)] and [("bigru", B, T, H, dtype)]
+    (RMVPE's recurrence, G). Shapes met with gradients on (a training
+    step's) are also appended to ``grad_shapes`` when given."""
     import torch
 
     from rvc_tpu_torch.models import commons
     from rvc_tpu_torch.models.generators import nsf
     from rvc_tpu_torch.ops import retrieval as rt
+    from rvc_tpu_torch.predictors import rmvpe as rp
 
     shapes, in_stage = [], []
     stage, chain, knn = nsf._resblock_stage, commons.ChainBlock.forward, rt.knn_topk
+    gru = rp.bigru
 
     def record(sh):
         shapes.append(sh)
@@ -354,18 +383,25 @@ def record_path_shapes(fn, grad_shapes=None):
         shapes.append(("knn", q.shape[0], v.shape[0], q.shape[1], k))
         return knn(q, v, k)
 
-    nsf._resblock_stage, commons.ChainBlock.forward, rt.knn_topk = (
-        stage_hook, chain_hook, knn_hook)
+    def gru_hook(xi_f, xi_b, wh, bn):
+        shapes.append(("bigru", xi_f.shape[0], xi_f.shape[1], wh.shape[1], xi_f.dtype))
+        return gru(xi_f, xi_b, wh, bn)
+
+    nsf._resblock_stage, commons.ChainBlock.forward, rt.knn_topk, rp.bigru = (
+        stage_hook, chain_hook, knn_hook, gru_hook)
     try:
         fn()
     finally:
-        nsf._resblock_stage, commons.ChainBlock.forward, rt.knn_topk = stage, chain, knn
+        nsf._resblock_stage, commons.ChainBlock.forward, rt.knn_topk, rp.bigru = (
+            stage, chain, knn, gru)
     return shapes
 
 
 def _shape_key(shape):
     """A recorded shape as a hashable key, dtype by name, batch 1 and slope
     0.1 if absent."""
+    if shape[0] == "bigru":
+        return tuple(shape[:4]) + (str(shape[4]).split(".")[-1],)
     if shape[0] in ("stage", "chain"):
         kind, c, t, dtype, ks, dil, *rest = shape
         b, slope = (list(rest) + [1, 0.1][len(rest):])[:2]
@@ -431,7 +467,8 @@ def phase_kernels(paths, grad_uses=None):
         for path, n in on_paths.items():  # the paths' launches: sum into them
             r = rec[path][name]
             r["max_abs_err"] = max(r["max_abs_err"], abs_err)
-            for f in ("ms", "plain_ms", "library_ms", "cudnn_bf16_ms", "wide_ms"):
+            for f in ("ms", "plain_ms", "library_ms", "cudnn_bf16_ms", "wide_ms", "floor_ms",
+                      "module_ms"):
                 if f in row:
                     r[f] = r.get(f, 0.0) + n * row[f]
             for f, v in zip(("bound_ms", "bytes_ms", "ops_ms"), bnd):
@@ -483,6 +520,14 @@ def phase_kernels(paths, grad_uses=None):
 
     knn_uses = [(k[1:], {p: n for (p, _), n in counts.items()})
                 for k, counts in uses.items() if k[0] == "knn"]
+    gru_uses = [(k[1:], {p: n for (p, _), n in counts.items()})
+                for k, counts in uses.items() if k[0] == "bigru"]
+    require(gru_uses or "pipeline" not in paths, "the main path ran no RMVPE recurrence")
+    for (b, t, h, dname), on_paths in gru_uses + [
+            (s, {}) for s in BIGRU_SMALL_SHAPES if "unit" not in paths]:
+        _check_bigru(check, b, t, h, dname, on_paths, gen)
+    torch.cuda.empty_cache()
+
     require(knn_uses or "pipeline" not in paths, "the main path made no retrieval search")
     for (n_q, n_v, d, k), on_paths in knn_uses + [(s, {}) for s in EXTRA_KNN_SHAPES]:
         q = torch.randn((n_q, d), generator=gen).to(dev)
@@ -593,6 +638,79 @@ def _stage_wide(x, chains, dil, slope, caches):
     acc = sum(rb._chain_wide(x, *ch, dil, slope, cc).float()
               for ch, cc in zip(chains, caches))
     return (acc / len(chains)).to(x.dtype)
+
+
+def _check_bigru(check, b, t, h, dname, on_paths, gen):
+    """G against ``bigru_plain`` on the same inputs: a FusedBiGRU of
+    seeded random weights (``wh`` at 1.5 / sqrt(H), so that the recurrence
+    carries), x [B, T, 384] ~ N(0, 1) and its projections. Tolerance 1e-5
+    (f32) and 2e-2 (bf16) of the largest output (the outputs lie in (-1,
+    1), so also absolute); in bf16 also the error against the plain version
+    in f32 on the same bf16 inputs, and G's and the plain loop's errors
+    against the plain loop in float64. Beside G's time: the plain loop's, the
+    exchange-only floor's (the same geometry without the product and the
+    gates), the whole FusedBiGRU forward's (projections and G), and torch
+    ``nn.GRU``'s on x with the weights mapped (cuDNN; it computes the
+    projections too; in f32 where it refuses bf16). Bound: the bytes (xi,
+    Wh, b_hn read once, out written once) and 2 directions x B x T x
+    (6 H^2 + 20 H) operations, on the bf16 tensor cores or, in f32, as
+    3xTF32."""
+    import torch
+
+    from rvc_tpu_torch.ops import bigru as bg
+    from rvc_tpu_torch.predictors.rmvpe import FusedBiGRU, N_MELS, torch_gru_state_dict
+
+    dtype = getattr(torch, dname)
+    f_in = 3 * N_MELS
+    mod = FusedBiGRU(f_in, h)
+    with torch.no_grad():
+        for name, prm in mod.named_parameters():
+            scale = {"wi": f_in ** -0.5, "bi": 0.1, "wh": 1.5 * h ** -0.5, "bh": 0.1}[name[:2]]
+            prm.copy_(torch.randn(prm.shape, generator=gen) * scale)
+    gru = torch.nn.GRU(f_in, h, bidirectional=True, batch_first=True)
+    gru.load_state_dict(torch_gru_state_dict(mod))
+    mod.requires_grad_(False)
+    gru.requires_grad_(False)
+    mod, x = mod.to("cuda", dtype), torch.randn((b, t, f_in), generator=gen).to("cuda", dtype)
+    lib_dtype = dname
+    try:
+        gru = gru.to("cuda", dtype)
+        gru(x[:, :2])
+    except RuntimeError:  # cuDNN's GRU without this dtype: the yardstick in f32
+        gru, lib_dtype = gru.to("cuda", torch.float32), "float32"
+    with torch.no_grad():
+        xi_f = (x @ mod.wi_fwd + mod.bi_fwd).contiguous()
+        xi_b = (x @ mod.wi_bwd + mod.bi_bwd).contiguous()
+        wh = torch.stack([mod.wh_fwd, mod.wh_bwd]).contiguous()
+        bn = torch.stack([mod.bhn_fwd, mod.bhn_bwd]).contiguous()
+        key = {"B": b, "T": t, "H": h, "dtype": dname, "library_dtype": lib_dtype}
+        p = bg.plan(h, b, dtype)
+        key.update(cluster=p.cluster, kpt=p.kpt, ks=p.ks, threads=p.threads, rows=p.rows)
+        # both against the plain loop in float64 on the same inputs, and
+        # how many outputs G and the plain loop differ in
+        got, plain = bg.bigru(xi_f, xi_b, wh, bn), bg.bigru_plain(xi_f, xi_b, wh, bn)
+        ref64 = bg.bigru_plain(xi_f.double(), xi_b.double(), wh.double(), bn.double())
+        key["max_abs_err_vs_f64_plain"] = (got.double() - ref64).abs().max().item()
+        key["plain_max_abs_err_vs_f64_plain"] = (plain.double() - ref64).abs().max().item()
+        key["elements_unequal_to_plain"] = int((got != plain).sum().item())
+        if dtype == torch.bfloat16:
+            ref32 = bg.bigru_plain(xi_f.float(), xi_b.float(), wh.float(), bn.float())
+            key["max_abs_err_vs_f32_plain"] = (got.float() - ref32).abs().max().item()
+            del ref32
+        del got, plain, ref64
+        e = x.element_size()
+        flops = 2.0 * b * t * (6 * h * h + 20 * h)
+        check("bigru", key, lambda: bg.bigru(xi_f, xi_b, wh, bn),
+              lambda: bg.bigru_plain(xi_f, xi_b, wh, bn),
+              lambda: gru(x.to(getattr(torch, lib_dtype))),
+              lambda: bg.bigru_plain(xi_f, xi_b, wh, bn),
+              2e-2 if dtype == torch.bfloat16 else 1e-5,
+              bound(e * (2 * b * t * 3 * h + 6 * h * h + 2 * h + 2 * b * t * h),
+                    [(flops, PEAK_BF16)] if dtype == torch.bfloat16
+                    else [(3 * flops, PEAK_TF32)]),
+              on_paths, extra={"floor_ms": lambda: bg.bigru(xi_f, xi_b, wh, bn,
+                                                            exchange_only=True),
+                               "module_ms": lambda: mod(x)})
 
 
 def _library_knn(q, v, k):
@@ -843,24 +961,55 @@ def _audio(seconds: float, rng):
             + 0.05 * rng.normal(size=t16)).astype(np.float32)
 
 
+def _count_rmvpe_forwards():
+    """Wrap ``E2EModel.forward`` (once) to count RMVPE forwards, each of
+    which must launch G once."""
+    from rvc_tpu_torch.predictors import rmvpe as rp
+
+    orig = rp.E2EModel.forward
+    if getattr(orig, "_counted", False):
+        return
+
+    def forward(self, mel):
+        _RMVPE_FORWARDS[0] += 1
+        return orig(self, mel)
+
+    forward._counted = True
+    rp.E2EModel.forward = forward
+
+
 def _reset_counts():
+    from rvc_tpu_torch.ops import bigru as bg
     from rvc_tpu_torch.ops import resblock as rb
     from rvc_tpu_torch.ops import retrieval as rt
 
     rb.reset_launches()
     rt.reset_launches()
+    bg.reset_launches()
+    _RMVPE_FORWARDS[0] = 0
 
 
 def _counts():
+    """The kernels' launch counts, and the RMVPE forwards (``rmvpe_forward``)."""
+    from rvc_tpu_torch.ops import bigru as bg
     from rvc_tpu_torch.ops import resblock as rb
     from rvc_tpu_torch.ops import retrieval as rt
 
-    return {**rb.launches, **rt.launches}
+    return {**rb.launches, **rt.launches, **bg.launches, "rmvpe_forward": _RMVPE_FORWARDS[0]}
+
+
+def _require_bigru(counts: dict, where: str) -> None:
+    """RMVPE ran, and every forward launched G exactly once (no step loop)."""
+    require(counts["rmvpe_forward"] > 0 and counts["bigru"] == counts["rmvpe_forward"],
+            f"the {where}: {counts['bigru']} launches of G for "
+            f"{counts['rmvpe_forward']} RMVPE forwards")
 
 
 def _require_launched(counts: dict, where: str, names=SERVING_KERNELS) -> None:
     for name in names:
         require(counts[name] > 0, f"kernel {name} was not launched on the {where}")
+    if "bigru" in names:
+        _require_bigru(counts, where)
 
 
 def phase_small_reference():
@@ -893,7 +1042,7 @@ def phase_small_reference():
     require(err <= 1e-3, f"small model: card vs CPU plain max abs err {err} > 1e-3")
     # an fp32 model: its stage tails (C <= 64) keep f32 precision through
     # the narrow chain kernel
-    _require_launched(counts, "small fp32 model", ("narrow_chain", "knn_topk"))
+    _require_launched(counts, "small fp32 model", ("narrow_chain", "knn_topk", "bigru"))
 
 
 def _weight_cache_builds(decoder) -> int:
@@ -998,6 +1147,23 @@ def phase_stream(pipe, audio, index, smi: str):
           "ms_per_request": 1e3 * wall / 4, "samples_each": expect})
 
 
+def _stage_mel(pipe, audio):
+    """The serving shapes' 16 kHz wave [1, n16] (numpy seed 3) of a
+    conversion of ``audio`` and RMVPE's mel input [1, f0 frames padded to
+    32, 128] in the pipeline's dtype."""
+    import torch
+
+    from rvc_tpu_torch.predictors.rmvpe import rmvpe_mel
+
+    n16 = pipe._bucket_len(audio.shape[0] + 2 * pipe.t_pad)
+    f0_frames = n16 // 160 + 1
+    wave = torch.from_numpy(_audio(n16 / 16000, np.random.default_rng(3))).to(pipe.device)[None]
+    mel = rmvpe_mel(wave)[:, :f0_frames]
+    mel = torch.nn.functional.pad(mel.transpose(1, 2), (0, (-f0_frames) % 32),
+                                  mode="reflect").transpose(1, 2).to(pipe.dtype)
+    return wave, mel, f0_frames
+
+
 def phase_stages(pipe, audio, index, smi: str):
     """Device time of each stage of one conversion at the serving shapes
     (CUDA events, median of 3 after a warm-up)."""
@@ -1007,12 +1173,7 @@ def phase_stages(pipe, audio, index, smi: str):
     from rvc_tpu_torch.predictors.rmvpe import rmvpe_mel
 
     dev, dt = pipe.device, pipe.dtype
-    n16 = pipe._bucket_len(audio.shape[0] + 2 * pipe.t_pad)
-    f0_frames = n16 // 160 + 1
-    wave = torch.from_numpy(_audio(n16 / 16000, np.random.default_rng(3))).to(dev)[None]
-    mel = rmvpe_mel(wave)[:, :f0_frames]
-    mel = torch.nn.functional.pad(mel.transpose(1, 2), (0, (-f0_frames) % 32),
-                                  mode="reflect").transpose(1, 2).to(dt)
+    wave, mel, f0_frames = _stage_mel(pipe, audio)
     feats = pipe.embedder(wave.to(dt)).float()
     q = feats[0].contiguous()
     frames = 2 * feats.shape[1]
@@ -1039,31 +1200,90 @@ def phase_stages(pipe, audio, index, smi: str):
           "hubert_frames": int(feats.shape[1]), "ms": ms})
 
 
+@contextlib.contextmanager
+def _plain_bigru():
+    """RMVPE's recurrence through the plain step loop that G replaced (the
+    A/B and the trace's count only)."""
+    from rvc_tpu_torch.ops import bigru as bg
+    from rvc_tpu_torch.predictors import rmvpe as rp
+
+    rp.bigru = bg.bigru_plain
+    try:
+        yield
+    finally:
+        rp.bigru = bg.bigru
+
+
 def phase_trace(run, smi: str):
-    """One conversion under torch.profiler: device busy time, idle share
-    and the kernels that take the most device time."""
+    """One conversion under torch.profiler: device busy time, idle share,
+    the kernels launched on the device and those that take the most device
+    time; then one (after a warm-up) with RMVPE's recurrence through the
+    plain step loop G replaced, for the count of kernels G saves."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    torch.cuda.synchronize()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total", 0) or getattr(
             e, "self_cuda_time_total", 0)
 
-    # device-side events only: an operator's row repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in events) / 1e3
+    def profiled():
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        # device-side events only: an operator's row repeats its kernels' time
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        return wall_ms, sum(dev_us(e) for e in events) / 1e3, events
+
+    wall_ms, busy_ms, events = profiled()
+    with _plain_bigru():
+        run()
+        plain_wall, plain_busy, plain_events = profiled()
     top = sorted(events, key=dev_us, reverse=True)[:25]
+    n, n_plain = sum(e.count for e in events), sum(e.count for e in plain_events)
     emit({"phase": "trace", "gpu": smi, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
-          "idle_share": 1.0 - busy_ms / wall_ms,
+          "idle_share": 1.0 - busy_ms / wall_ms, "device_kernels": n,
+          "plain_loop": {"wall_ms": plain_wall, "device_busy_ms": plain_busy,
+                         "idle_share": 1.0 - plain_busy / plain_wall, "device_kernels": n_plain},
+          "device_kernels_dropped": n_plain - n,
           "top": [{"name": e.key[:90], "ms": dev_us(e) / 1e3, "count": e.count}
                   for e in top]})
+    require(busy_ms > 0 and n < n_plain, f"trace: {n} kernels with G, {n_plain} without")
+
+
+AB_ROUNDS = 2
+
+
+def phase_ab(pipe, audio, run, smi: str, files: dict, root: str):
+    """Kernel G against the plain step loop it replaced, in one process and
+    in turns (plain, G, G, plain) x ``AB_ROUNDS``: the ``rmvpe_model`` stage
+    of a 10 s conversion (CUDA events, median of 3 a turn), the warm 10 s
+    conversion's wall (phase pipeline's ``run``, host clock) and the CLI's
+    wall on phase windowed's 150 s input."""
+    import torch
+
+    _, mel, _ = _stage_mel(pipe, audio)
+    argv = ["infer", "--input_path", os.path.join(root, "long_44k_stereo.wav"),
+            "--output_path", os.path.join(root, "ab_out.wav"), "--pth_path", files["pth"],
+            *_flags(files)]
+    res = {k: {"plain": [], "kernel": []} for k in ("rmvpe_model_ms", "wall_10s_s",
+                                                     "cli_150s_s")}
+    for _ in range(AB_ROUNDS):
+        for which in ("plain", "kernel", "kernel", "plain"):
+            with _plain_bigru() if which == "plain" else contextlib.nullcontext():
+                with torch.no_grad():
+                    res["rmvpe_model_ms"][which].append(
+                        gpu_time_ms(lambda: pipe._rmvpe_model(mel), 3))
+                t0 = time.perf_counter()
+                run()
+                res["wall_10s_s"][which].append(time.perf_counter() - t0)
+                res["cli_150s_s"][which].append(_cli(argv, root))
+    med = {k: {w: statistics.median(v) for w, v in d.items()} for k, d in res.items()}
+    emit({"phase": "ab", "gpu": smi, "rounds": AB_ROUNDS,
+          "order": "plain, kernel, kernel, plain", "all": res, "median": med,
+          "kernel_over_plain": {k: m["kernel"] / m["plain"] for k, m in med.items()}})
 
 
 # -- the user's entry points: model files, the CLI, long inputs, folders -------
@@ -1074,20 +1294,16 @@ def _reference_rmvpe(e2e) -> dict:
     the batch norms' ``num_batches_tracked``."""
     import torch
 
-    gru = e2e.fc[0].gru
+    from rvc_tpu_torch.predictors.rmvpe import torch_gru_state_dict
+
     sd = {}
     for k, v in e2e.state_dict().items():
         if not k.startswith("fc.0.gru."):
             sd[k] = v.detach().cpu().clone()
             if k.endswith("running_mean"):
                 sd[k[:-len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
-    for sfx, tag in (("", "fwd"), ("_reverse", "bwd")):
-        p = {n: getattr(gru, f"{n}_{tag}").detach().cpu() for n in ("wi", "bi", "wh", "bhn")}
-        sd[f"fc.0.gru.weight_ih_l0{sfx}"] = p["wi"].T.contiguous()
-        sd[f"fc.0.gru.weight_hh_l0{sfx}"] = p["wh"].T.contiguous()
-        sd[f"fc.0.gru.bias_ih_l0{sfx}"] = p["bi"].clone()
-        sd[f"fc.0.gru.bias_hh_l0{sfx}"] = torch.cat([torch.zeros(2 * gru.hidden),
-                                                     p["bhn"]])
+    sd.update({f"fc.0.gru.{k}": v.cpu() for k, v in
+               torch_gru_state_dict(e2e.fc[0].gru).items()})
     return sd
 
 
@@ -1264,12 +1480,19 @@ _CHILD_CLI = """import json, sys, time
 import torch
 sys.path.insert(0, {repo!r})
 from rvc_tpu_torch import cli
-from rvc_tpu_torch.ops import resblock as rb, retrieval as rt
+from rvc_tpu_torch.ops import bigru as bg, resblock as rb, retrieval as rt
+from rvc_tpu_torch.predictors import rmvpe as rp
+n, fwd = [0], rp.E2EModel.forward
+def counted(self, mel):
+    n[0] += 1
+    return fwd(self, mel)
+rp.E2EModel.forward = counted
 t0 = time.perf_counter()
 rc = cli.main(sys.argv[1:])
 torch.cuda.synchronize()
 print(json.dumps({{"rc": rc, "wall_s": time.perf_counter() - t0,
-                  "launches": {{**rb.launches, **rt.launches}}}}))
+                  "launches": {{**rb.launches, **rt.launches, **bg.launches,
+                               "rmvpe_forward": n[0]}}}}))
 """
 
 
@@ -1919,6 +2142,7 @@ def _zoo_conversions(smi: str, files: dict, root: str, rng):
             launches[path] = _counts()
         require(_zoo_launch_ok(vocoder, launches[path]) and launches[path]["knn_topk"] > 0,
                 f"{tag}: kernels not launched: {launches[path]}")
+        _require_bigru(launches[path], f"{tag} conversion")
         data = _check_wav(out, _windowed_len(probe.pipe, audio), f"zoo {tag}", sr)
 
         kw = dict(model_path=pth, index_path=files["index"], f0_method="rmvpe",
@@ -2874,6 +3098,7 @@ def phase_prep(smi: str, root: str, files: dict):
     counts = {k: c + child_counts.get(k, 0) for k, c in _counts().items()}
     for name, c in counts.items():
         require(c > 0, f"kernel {name} was not launched on the dataset path")
+    _require_bigru(counts, "dataset path")
     # every take but the rejected one, as many 48 kHz samples as the
     # resampler gives it
     takes = sorted(glob.glob(os.path.join(data_dir, "**", "take*.wav"), recursive=True))
@@ -3227,6 +3452,7 @@ def phase_dist(smi: str, files: dict, root: str):
           **res})
     for name, c in counts.items():
         require(c > 0, f"kernel {name} was not launched by the sharded batch")
+    _require_bigru(counts, "sharded batch")
     for precision in ("fp32", "bf16"):
         worst = max(v for k, v in diffs.items() if k.startswith(precision))
         require(worst <= 1.0 + 1e-3,
@@ -3400,6 +3626,7 @@ def phase_ui(smi: str, files: dict, root: str):
         os.chdir(cwd)
     for name, c in counts.items():
         require(c > 0, f"kernel {name} was not launched by the UI")
+    _require_bigru(counts, "UI")
 
     # the inference event against the CLI with the same settings
     cli_out = os.path.join(root, "ui_cli.wav")
@@ -3515,6 +3742,8 @@ KERNEL_META = {
     "narrow_chain": ("rvc_tpu_torch/csrc/resblock_narrow.cu",
                      "rvc_tpu/ops/resblock_pallas.py:239"),
     "knn_topk": ("rvc_tpu_torch/csrc/knn.cu", "rvc_tpu/ops/retrieval_pallas.py:125"),
+    # no pallas_call: the lax.scan of FusedBiGRU, which XLA runs as one loop
+    "bigru": ("rvc_tpu_torch/csrc/bigru.cu", "rvc_tpu/predictors/rmvpe.py:236"),
 }
 # the TPU kernels the narrow chain kernel carries: fused_resblock's chains
 # at C <= 64 and fused_mrf's f32 stage tails
@@ -3534,10 +3763,11 @@ def main(argv) -> int:
         return 2
     phases = argv[1].split(",") if len(argv) > 1 else [
         "env", "build", "small", "pipeline", "stream", "files", "windowed", "batch",
-        "nof0", "train", "prep", "zoo", "fx", "dist", "ui", "kernels", "stages"]
+        "nof0", "train", "prep", "zoo", "fx", "dist", "ui", "kernels", "stages", "ab"]
     sys.path.insert(0, REPO)
     import rvc_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    _count_rmvpe_forwards()
     smi = phase_env()
     if "build" in phases:
         phase_build()
@@ -3597,6 +3827,8 @@ def main(argv) -> int:
             phase_stages(pipe, audio, index, smi)
         if "pipeline" in phases and "trace" in phases:
             phase_trace(run, smi)
+        if "ab" in phases and {"pipeline", "windowed"} <= set(phases):
+            phase_ab(pipe, audio, run, smi, files, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = []

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..ops.bigru import bigru
 from ..ops.mel import mel_filterbank
 from ..ops.stft import stft_magnitude
 from .bucketing import bucket_samples, reflect_to
@@ -147,8 +148,9 @@ class DeepUnet(nn.Module):
 
 class FusedBiGRU(nn.Module):
     """Bidirectional GRU with the input projections of all gates hoisted
-    out of the time loop and both directions advanced in one batched
-    matmul per step. Gate math matches torch ``nn.GRU``."""
+    out of the time loop; the recurrence of both directions is one call of
+    ``ops.bigru.bigru`` (kernel G on the card, the plain step loop on the
+    CPU). Gate math matches torch ``nn.GRU``."""
 
     def __init__(self, input_size: int, hidden: int):
         super().__init__()
@@ -160,24 +162,11 @@ class FusedBiGRU(nn.Module):
             self.register_parameter(f"bhn_{tag}", nn.Parameter(torch.zeros(hidden)))
 
     def forward(self, x):  # [B, T, F] -> [B, T, 2H]
-        b, t, _ = x.shape
-        hh = self.hidden
-        xi = torch.stack([x @ self.wi_fwd + self.bi_fwd,
-                          (x @ self.wi_bwd + self.bi_bwd).flip(1)])  # [2, B, T, 3H]
+        xi_f = x @ self.wi_fwd + self.bi_fwd                        # [B, T, 3H]
+        xi_b = x @ self.wi_bwd + self.bi_bwd
         wh = torch.stack([self.wh_fwd, self.wh_bwd])                # [2, H, 3H]
-        bn = torch.stack([self.bhn_fwd, self.bhn_bwd])[:, None, :]  # [2, 1, H]
-        h = torch.zeros((2, b, hh), dtype=x.dtype, device=x.device)
-        outs = []
-        for step in range(t):
-            xs = xi[:, :, step]
-            g = torch.bmm(h, wh)
-            rz = torch.sigmoid(xs[..., :2 * hh] + g[..., :2 * hh])
-            r, z = rz[..., :hh], rz[..., hh:]
-            n = torch.tanh(xs[..., 2 * hh:] + r * (g[..., 2 * hh:] + bn))
-            h = (1.0 - z) * n + z * h
-            outs.append(h)
-        o = torch.stack(outs, dim=2)                                 # [2, B, T, H]
-        return torch.cat([o[0], o[1].flip(1)], dim=-1)
+        bn = torch.stack([self.bhn_fwd, self.bhn_bwd])              # [2, H]
+        return bigru(xi_f, xi_b, wh, bn)
 
 
 class _GRUHead(nn.Module):
@@ -251,6 +240,21 @@ def state_dict_from_torch_rmvpe(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.
         out[f"{g}.wh_{tag}"] = w_hh.T.contiguous()
         out[f"{g}.bhn_{tag}"] = b_hh[2 * h:].clone()
     return out
+
+
+def torch_gru_state_dict(gru: FusedBiGRU) -> Dict[str, torch.Tensor]:
+    """``FusedBiGRU``'s weights in torch ``nn.GRU``'s layout (one layer,
+    bidirectional, gates r, z, n stacked), the inverse of the BiGRU part of
+    ``state_dict_from_torch_rmvpe``: ``weight_ih = wi^T``, ``weight_hh =
+    wh^T``, ``bias_ih`` the folded input bias, ``bias_hh = (0, 0, b_hn)``."""
+    sd = {}
+    for sfx, tag in (("", "fwd"), ("_reverse", "bwd")):
+        p = {n: getattr(gru, f"{n}_{tag}").detach() for n in ("wi", "bi", "wh", "bhn")}
+        sd[f"weight_ih_l0{sfx}"] = p["wi"].T.contiguous()
+        sd[f"weight_hh_l0{sfx}"] = p["wh"].T.contiguous()
+        sd[f"bias_ih_l0{sfx}"] = p["bi"].clone()
+        sd[f"bias_hh_l0{sfx}"] = torch.cat([torch.zeros_like(p["bhn"]).repeat(2), p["bhn"]])
+    return sd
 
 
 class RMVPE:
