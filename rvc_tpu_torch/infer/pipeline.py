@@ -38,6 +38,8 @@ from ..ops.retrieval import retrieve_blend
 from ..predictors.f0_extractor import (check_f0_method, interp_f0_to_grid,
                                        parse_f0_methods)
 from ..predictors.rmvpe import decode_salience, rmvpe_mel
+from ..utils import profiling
+from ..utils.profiling import span
 
 AUTOTUNE_REF_FREQS = np.array([
     49.00, 51.91, 55.00, 58.27, 61.74, 65.41, 69.30, 73.42, 77.78, 82.41,
@@ -246,12 +248,14 @@ class Pipeline:
         [B, P] int and pitchf [B, P], or both None for a model without
         pitch -> audio [B, T_out] (int16 in bf16 serving)."""
         use_pitch = pitch is not None
-        feats = self.embedder(audio16k.to(self.dtype)).float()
+        with span("rvc.hubert"):
+            feats = self.embedder(audio16k.to(self.dtype)).float()
         feats0 = feats
         if index_vectors is not None:
             b, tt, dd = feats.shape
-            feats = retrieve_blend(feats.reshape(b * tt, dd).contiguous(),
-                                   index_vectors, index_rate).reshape(b, tt, dd)
+            with span("rvc.retrieval"):
+                feats = retrieve_blend(feats.reshape(b * tt, dd).contiguous(),
+                                       index_vectors, index_rate).reshape(b, tt, dd)
         feats = torch.repeat_interleave(feats, 2, dim=1)
         feats0 = torch.repeat_interleave(feats0, 2, dim=1)
         t = min(feats.shape[1], pitch.shape[1]) if use_pitch else feats.shape[1]
@@ -263,8 +267,9 @@ class Pipeline:
                                       torch.full_like(pitchf, protect))[..., None]
                 feats = feats * pitchff + feats0 * (1.0 - pitchff)
         lengths = torch.clamp(p_len, max=t)
-        audio, _ = self.synthesizer.infer(feats, lengths, pitch, pitchf, sid,
-                                          generator=generator)
+        with span("rvc.synth"):
+            audio, _ = self.synthesizer.infer(feats, lengths, pitch, pitchf, sid,
+                                              generator=generator)
         audio = audio[..., 0]
         if self.precision == "bf16":
             return torch.clamp(audio.float() * 32767.0, -32768, 32767).to(torch.int16)
@@ -277,32 +282,34 @@ class Pipeline:
                        use_autotune: bool = False, filter_radius: int = 3,
                        f0_frames: int = 0) -> torch.Tensor:
         dev = audio16k.device
-        if not torch.is_floating_point(audio16k):
-            audio16k = audio16k.float() / 32767.0
-        mel = rmvpe_mel(audio16k)[:, :f0_frames]
-        pad = (-f0_frames) % 32
-        if pad:
-            mel = torch.nn.functional.pad(mel.transpose(1, 2), (0, pad),
-                                          mode="reflect").transpose(1, 2)
-        hidden = self._rmvpe_model(mel.to(self.dtype)).float()
-        f0 = torch.stack([decode_salience(h) for h in hidden[:, :f0_frames]])
+        with span("rvc.mel"):
+            if not torch.is_floating_point(audio16k):
+                audio16k = audio16k.float() / 32767.0
+            mel = rmvpe_mel(audio16k)[:, :f0_frames]
+            pad = (-f0_frames) % 32
+            if pad:
+                mel = torch.nn.functional.pad(mel.transpose(1, 2), (0, pad),
+                                              mode="reflect").transpose(1, 2)
+        with span("rvc.rmvpe"):
+            hidden = self._rmvpe_model(mel.to(self.dtype)).float()
+        with span("rvc.f0"):
+            f0 = torch.stack([decode_salience(h) for h in hidden[:, :f0_frames]])
+            if filter_radius >= 3:  # median filter with zero-padded edges
+                r = filter_radius if filter_radius % 2 == 1 else filter_radius + 1
+                padded = torch.nn.functional.pad(f0, (r // 2, r // 2))
+                f0 = torch.sort(padded.unfold(1, r, 1), dim=-1).values[..., r // 2]
+            if use_autotune:
+                freqs = torch.from_numpy(AUTOTUNE_REF_FREQS).to(dev)
+                idx = torch.argmin(torch.abs(f0[..., None] - freqs), dim=-1)
+                f0 = f0 + (freqs[idx] - f0) * _f32(autotune_strength, dev)
+            f0 = f0 * (2.0 ** (_f32(pitch_shift, dev) / 12.0))
 
-        if filter_radius >= 3:  # median filter with zero-padded edges
-            r = filter_radius if filter_radius % 2 == 1 else filter_radius + 1
-            padded = torch.nn.functional.pad(f0, (r // 2, r // 2))
-            f0 = torch.sort(padded.unfold(1, r, 1), dim=-1).values[..., r // 2]
-        if use_autotune:
-            freqs = torch.from_numpy(AUTOTUNE_REF_FREQS).to(dev)
-            idx = torch.argmin(torch.abs(f0[..., None] - freqs), dim=-1)
-            f0 = f0 + (freqs[idx] - f0) * _f32(autotune_strength, dev)
-        f0 = f0 * (2.0 ** (_f32(pitch_shift, dev) / 12.0))
-
-        f0_mel_min = 1127.0 * torch.log(_f32(1.0 + F0_MIN / 700.0, dev))
-        f0_mel_max = 1127.0 * torch.log(_f32(1.0 + F0_MAX / 700.0, dev))
-        f0_mel = 1127.0 * torch.log(1.0 + f0 / 700.0)
-        scaled = (f0_mel - f0_mel_min) * 254.0 / (f0_mel_max - f0_mel_min) + 1.0
-        f0_mel = torch.where(f0_mel > 0, scaled, f0_mel)
-        coarse = torch.round(torch.clamp(f0_mel, 1.0, 255.0)).to(torch.int64)
+            f0_mel_min = 1127.0 * torch.log(_f32(1.0 + F0_MIN / 700.0, dev))
+            f0_mel_max = 1127.0 * torch.log(_f32(1.0 + F0_MAX / 700.0, dev))
+            f0_mel = 1127.0 * torch.log(1.0 + f0 / 700.0)
+            scaled = (f0_mel - f0_mel_min) * 254.0 / (f0_mel_max - f0_mel_min) + 1.0
+            f0_mel = torch.where(f0_mel > 0, scaled, f0_mel)
+            coarse = torch.round(torch.clamp(f0_mel, 1.0, 255.0)).to(torch.int64)
 
         frames = audio16k.shape[1] // WINDOW
         return self._convert_core(
@@ -317,15 +324,19 @@ class Pipeline:
         return arr
 
     @staticmethod
-    def _to_host(audio_out) -> np.ndarray:
-        """A device result (or the replicas' results, rows in order) as a
-        float array."""
-        if isinstance(audio_out, list):
-            audio_out = torch.cat([o.cpu() for o in audio_out])
-        out = audio_out.cpu().numpy() if torch.is_tensor(audio_out) else audio_out
-        if out.dtype == np.int16:
-            out = out.astype(np.float32) / 32767.0
-        return out
+    def _to_host(audio_out, done=(), req=None) -> np.ndarray:
+        """A device result (or the replicas' results, rows in order), once
+        the ``done`` events have passed, as a float array; its span is
+        ``req``'s, by default the current request's."""
+        with span("rvc.download", req):
+            for event in done:
+                event.synchronize()
+            if isinstance(audio_out, list):
+                audio_out = torch.cat([o.cpu() for o in audio_out])
+            out = audio_out.cpu().numpy() if torch.is_tensor(audio_out) else audio_out
+            if out.dtype == np.int16:
+                out = out.astype(np.float32) / 32767.0
+            return out
 
     def _bucket_len(self, t: int) -> int:
         """Pad a 16 kHz length up to a whole second."""
@@ -386,6 +397,7 @@ class Pipeline:
         t = torch.from_numpy(np.ascontiguousarray(arr))
         if self.device.type == "cuda":
             t = t.pin_memory()
+            profiling.count("pinned_allocs")
         return t.to(self.device, non_blocking=True)
 
     def _generator(self, seed: int) -> torch.Generator:
@@ -402,15 +414,16 @@ class Pipeline:
         flight."""
         max_inflight = max(int(depth), 2) + 2
 
-        def drain(out_host, done, finish):
-            for event in done:
-                event.synchronize()
-            return finish(self._to_host(out_host))
+        def drain(out_host, done, finish, req):
+            return finish(self._to_host(out_host, done, req))
 
         futures = []
         with ThreadPoolExecutor(max_workers=1) as pool:
             for i, (out, finish) in enumerate(dispatched):
-                futures.append(pool.submit(drain, *self._download(out), finish))
+                with span("rvc.download_enqueue"):
+                    out_host, done = self._download(out)
+                futures.append(pool.submit(drain, out_host, done, finish,
+                                           profiling.current()))
                 if i >= max_inflight:
                     futures[i - max_inflight].result()
             return [f.result() for f in futures]
@@ -425,6 +438,7 @@ class Pipeline:
             return out, []
         host = torch.empty((sum(o.shape[0] for o in outs), *outs[0].shape[1:]),
                            dtype=outs[0].dtype, pin_memory=True)
+        profiling.count("pinned_allocs")
         events, r0 = [], 0
         for o in outs:
             with torch.cuda.device(o.device):
@@ -458,16 +472,18 @@ class Pipeline:
                                      rep._replica_index(index_vectors), index_rate,
                                      protect, draws, pitch_shift, f0_autotune,
                                      f0_autotune_strength, filter_radius, t_pad))
-        audio_in, p_lens, _, _ = self._rows(audio_segs, t_pad=t_pad)
-        out = self._convert_fused(
-            self._upload(self._quantize_in(audio_in)),
-            torch.tensor(p_lens, device=self.device),
-            torch.full((len(audio_segs),), int(sid), device=self.device),
-            index_vectors, float(index_rate), float(protect),
-            float(pitch_shift), float(f0_autotune_strength),
-            generator if generator is not None else self._generator(0),
-            use_autotune=bool(f0_autotune), filter_radius=int(filter_radius),
-            f0_frames=audio_in.shape[1] // WINDOW + 1)
+        with span("rvc.upload"):
+            audio_in, p_lens, _, _ = self._rows(audio_segs, t_pad=t_pad)
+            audio = self._upload(self._quantize_in(audio_in))
+            p_len = torch.tensor(p_lens, device=self.device)
+            sids = torch.full((len(audio_segs),), int(sid), device=self.device)
+        with span("rvc.dispatch"):
+            out = self._convert_fused(
+                audio, p_len, sids, index_vectors, float(index_rate), float(protect),
+                float(pitch_shift), float(f0_autotune_strength),
+                generator if generator is not None else self._generator(0),
+                use_autotune=bool(f0_autotune), filter_radius=int(filter_radius),
+                f0_frames=audio_in.shape[1] // WINDOW + 1)
         return out, p_lens
 
     def voice_conversion_fused(
@@ -629,15 +645,17 @@ class Pipeline:
                                      [sids[i] for i in rows],
                                      rep._replica_index(index_vectors), index_rate,
                                      protect, draws, t_pad))
-        audio_in, p_lens, pit, pif = self._rows(segments, pitches, pitchfs, t_pad)
-        if pit is not None:
-            pit, pif = self._upload(pit), self._upload(pif)
-        out = self._convert_core(
-            self._upload(audio_in), pit, pif,
-            torch.tensor(p_lens, device=self.device),
-            torch.tensor(list(sids), device=self.device), index_vectors,
-            float(index_rate), float(protect),
-            generator if generator is not None else self._generator(0))
+        with span("rvc.upload"):
+            audio_in, p_lens, pit, pif = self._rows(segments, pitches, pitchfs, t_pad)
+            if pit is not None:
+                pit, pif = self._upload(pit), self._upload(pif)
+            audio = self._upload(audio_in)
+            p_len = torch.tensor(p_lens, device=self.device)
+            sid = torch.tensor(list(sids), device=self.device)
+        with span("rvc.dispatch"):
+            out = self._convert_core(
+                audio, pit, pif, p_len, sid, index_vectors, float(index_rate),
+                float(protect), generator if generator is not None else self._generator(0))
         return out, p_lens
 
     def voice_conversion(
@@ -716,57 +734,64 @@ class Pipeline:
         """Full conversion of a 16 kHz waveform -> tgt_sr waveform. An input
         up to ``t_max`` with RMVPE pitch and no external f0 takes the fused
         path; the rest (and every other f0 method) take the windowed
-        path."""
+        path. One request of the recorder (``utils/profiling.py``)."""
         if pitch_guidance:
             check_f0_method(f0_method)
-        index_arr = (self._index_on_device(index_vectors)
-                     if index_vectors is not None and index_rate > 0 else None)
-        audio = self._highpass(audio)
-        opt_ts = self._find_cut_points(audio)
-        audio_pad = np.pad(audio, (self.t_pad, self.t_pad), mode="reflect")
-        p_len = audio_pad.shape[0] // WINDOW
+        with profiling.request(audio.shape[0]) as req:
+            with span("rvc.prep"):
+                index_arr = (self._index_on_device(index_vectors)
+                             if index_vectors is not None and index_rate > 0 else None)
+                audio = self._highpass(audio)
+                opt_ts = self._find_cut_points(audio)
+                audio_pad = np.pad(audio, (self.t_pad, self.t_pad), mode="reflect")
+            p_len = audio_pad.shape[0] // WINDOW
 
-        fused = (pitch_guidance and not opt_ts and inp_f0 is None
-                 and f0_method == "rmvpe")
-        if fused:
-            self._attach_rmvpe(predictors)
-        if fused and self._rmvpe is not None:
-            seg_out = self.voice_conversion_fused(
-                audio_pad, sid, index_arr, index_rate, protect, generator,
-                pitch_shift=pitch_shift, f0_autotune=f0_autotune,
-                f0_autotune_strength=f0_autotune_strength,
-                filter_radius=int(filter_radius or 0))
-            return self._finish(seg_out[self.t_pad_tgt:-self.t_pad_tgt], audio,
-                                volume_envelope)
+            fused = (pitch_guidance and not opt_ts and inp_f0 is None
+                     and f0_method == "rmvpe")
+            if fused:
+                self._attach_rmvpe(predictors)
+            if fused and self._rmvpe is not None:
+                req.bucket = self._bucket_len(audio_pad.shape[0])
+                seg_out = self.voice_conversion_fused(
+                    audio_pad, sid, index_arr, index_rate, protect, generator,
+                    pitch_shift=pitch_shift, f0_autotune=f0_autotune,
+                    f0_autotune_strength=f0_autotune_strength,
+                    filter_radius=int(filter_radius or 0))
+                with span("rvc.finish"):
+                    return self._finish(seg_out[self.t_pad_tgt:-self.t_pad_tgt], audio,
+                                        volume_envelope)
 
-        pitch = pitchf = None
-        if pitch_guidance:
-            pitch, pitchf = self.get_f0(
-                audio_pad, p_len, pitch_shift, f0_method, predictors,
-                f0_autotune, f0_autotune_strength, inp_f0, filter_radius,
-                hop_length)
-        # the windows and their slices of the global pitch
-        segments, seg_pitches, seg_pitchfs = [], [], []
-        s, t = 0, None
-        for t_raw in opt_ts:
-            t = t_raw // WINDOW * WINDOW
-            segments.append(audio_pad[s:t + self.t_pad2 + WINDOW])
-            pslice = slice(s // WINDOW, (t + self.t_pad2) // WINDOW)
-            seg_pitches.append(pitch[pslice] if pitch is not None else None)
-            seg_pitchfs.append(pitchf[pslice] if pitchf is not None else None)
-            s = t
-        tail = slice(t // WINDOW, None) if t is not None else slice(None)
-        segments.append(audio_pad[t:] if t is not None else audio_pad)
-        seg_pitches.append(pitch[tail] if pitch is not None else None)
-        seg_pitchfs.append(pitchf[tail] if pitchf is not None else None)
+            pitch = pitchf = None
+            if pitch_guidance:
+                with span("rvc.host_f0"):
+                    pitch, pitchf = self.get_f0(
+                        audio_pad, p_len, pitch_shift, f0_method, predictors,
+                        f0_autotune, f0_autotune_strength, inp_f0, filter_radius,
+                        hop_length)
+            # the windows and their slices of the global pitch
+            segments, seg_pitches, seg_pitchfs = [], [], []
+            s, t = 0, None
+            for t_raw in opt_ts:
+                t = t_raw // WINDOW * WINDOW
+                segments.append(audio_pad[s:t + self.t_pad2 + WINDOW])
+                pslice = slice(s // WINDOW, (t + self.t_pad2) // WINDOW)
+                seg_pitches.append(pitch[pslice] if pitch is not None else None)
+                seg_pitchfs.append(pitchf[pslice] if pitchf is not None else None)
+                s = t
+            tail = slice(t // WINDOW, None) if t is not None else slice(None)
+            segments.append(audio_pad[t:] if t is not None else audio_pad)
+            seg_pitches.append(pitch[tail] if pitch is not None else None)
+            seg_pitchfs.append(pitchf[tail] if pitchf is not None else None)
 
-        gen = generator if generator is not None else self._generator(0)
-        seg_outs = self.voice_conversion_stream(
-            segments, seg_pitches, seg_pitchfs, sid, index_arr, index_rate,
-            protect, [gen] * len(segments))
-        audio_opt = np.concatenate(
-            [o[self.t_pad_tgt:-self.t_pad_tgt] for o in seg_outs])
-        return self._finish(audio_opt, audio, volume_envelope)
+            req.bucket = max(self._bucket_len(len(seg)) for seg in segments)
+            gen = generator if generator is not None else self._generator(0)
+            seg_outs = self.voice_conversion_stream(
+                segments, seg_pitches, seg_pitchfs, sid, index_arr, index_rate,
+                protect, [gen] * len(segments))
+            with span("rvc.finish"):
+                audio_opt = np.concatenate(
+                    [o[self.t_pad_tgt:-self.t_pad_tgt] for o in seg_outs])
+                return self._finish(audio_opt, audio, volume_envelope)
 
     def pipeline_many(
         self, audios: List[np.ndarray], sid: int = 0, pitch_shift: float = 0,
@@ -797,20 +822,35 @@ class Pipeline:
             return [self.pipeline(a, **kwargs) for a in audios]
 
         hp: List[np.ndarray] = []  # prep runs in dispatch order
+        reqs: List[profiling.Request] = []  # a request a clip, from its prep on
 
         def prep(seg):
-            h = self._highpass(seg)
-            hp.append(h)
-            return np.pad(h, (self.t_pad, self.t_pad), mode="reflect")
+            req = profiling.request(seg.shape[0]).start()
+            reqs.append(req)
+            with span("rvc.prep"):
+                h = self._highpass(seg)
+                hp.append(h)
+                padded = np.pad(h, (self.t_pad, self.t_pad), mode="reflect")
+            req.bucket = self._bucket_len(padded.shape[0])
+            return padded
 
         # serial pipeline() calls each start a generator seeded with 0, or
         # draw from the caller's one generator in turn: the stream does both
         gens = ([generator] * len(audios) if generator is not None
                 else [self._generator(0) for _ in audios])
-        raw = self.voice_conversion_fused_stream(
-            audios, sid, index_vectors if index_rate > 0 else None, index_rate,
-            protect, pitch_shift=pitch_shift, f0_autotune=f0_autotune,
-            f0_autotune_strength=f0_autotune_strength,
-            filter_radius=int(filter_radius or 0), prep=prep, generators=gens)
-        return [self._finish(o[self.t_pad_tgt:-self.t_pad_tgt], h, volume_envelope)
-                for o, h in zip(raw, hp)]
+        try:
+            raw = self.voice_conversion_fused_stream(
+                audios, sid, index_vectors if index_rate > 0 else None, index_rate,
+                protect, pitch_shift=pitch_shift, f0_autotune=f0_autotune,
+                f0_autotune_strength=f0_autotune_strength,
+                filter_radius=int(filter_radius or 0), prep=prep, generators=gens)
+            outs = []
+            for o, h, req in zip(raw, hp, reqs):
+                with span("rvc.finish", req):
+                    outs.append(self._finish(o[self.t_pad_tgt:-self.t_pad_tgt], h,
+                                             volume_envelope))
+                req.end()
+            return outs
+        finally:
+            for req in reqs:    # those a failure left open
+                req.end(failed=True)

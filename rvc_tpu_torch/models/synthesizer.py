@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .commons import draw, rand_slice_segments, slice_segments
 from .encoders import PosteriorEncoder, TextEncoder
 from .flows import ResidualCouplingBlock
@@ -154,10 +155,11 @@ class Synthesizer(nn.Module):
             if self.use_f0 and nsff0 is not None:
                 nsff0 = nsff0[:, head:]
         z = self.flow.reverse(z_p, x_mask, g=g)
-        if self.use_f0:
-            o = self.dec(z * x_mask, nsff0, g=g, generator=generator)
-        else:
-            o = self.dec(z * x_mask, g=g)
+        with span("rvc.decoder"):
+            if self.use_f0:
+                o = self.dec(z * x_mask, nsff0, g=g, generator=generator)
+            else:
+                o = self.dec(z * x_mask, g=g)
         return o.transpose(1, 2), x_mask.transpose(1, 2)
 
     @staticmethod

@@ -23,6 +23,8 @@ from typing import Optional
 
 import torch
 
+from ..utils import profiling
+
 launches = {"bigru": 0}
 
 CLUSTERS = (1, 2, 4, 8, 16)   # blocks of a cluster (16: the non-portable size)
@@ -217,6 +219,7 @@ def _check(xi_f, xi_b, wh, bn):
     return b, t, hh
 
 
+@profiling.annotated("rvc.bigru")
 def bigru(xi_f: torch.Tensor, xi_b: torch.Tensor, wh: torch.Tensor, bn: torch.Tensor,
           plan_: Optional[BiGruPlan] = None, exchange_only: bool = False) -> torch.Tensor:
     """G: ``bigru_plain``'s function in one launch for CUDA tensors (f32 or

@@ -59,6 +59,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import H100_SMS
+from ..utils import profiling
 
 # shared memory a block may use on Hopper (232,448 bytes) and the registers
 # of an SM
@@ -468,6 +469,7 @@ class WeightCache:
             # address while the key holds it) but no autograd graph does
             self._key, self._refs = key, [t.detach() for t in tensors]
             self.builds += 1
+            profiling.count("weight_packs")
         return self._value
 
 
@@ -714,6 +716,7 @@ class _ResblockChain(torch.autograd.Function):
                 x, *_unflatten_chains(flat, len(dil))[0], dil, slope), g))
 
 
+@profiling.annotated("rvc.stage_tails")
 def mrf_stage(x, chains, kernel_sizes: Sequence[int],
               dilations: Sequence[int], slope: float = 0.1,
               cache: Optional[WeightCache] = None) -> torch.Tensor:
@@ -792,6 +795,7 @@ def _launch_stage(fn, x, plan: StagePlan, packed: PackedStage, kernel_sizes,
     return out
 
 
+@profiling.annotated("rvc.stage_tails")
 def resblock_chain(x, w1s, b1s, w2s, b2s, dilations: Sequence[int],
                    slope: float = 0.1,
                    cache: Optional[WeightCache] = None) -> torch.Tensor:

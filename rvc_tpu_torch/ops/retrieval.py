@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ..device import H100_SMS, resolve_device
+from ..utils import profiling
 
 launches = {"knn_topk": 0}
 MAX_K = 8
@@ -108,6 +109,7 @@ def split_plan(n_q: int, n_v: int) -> Tuple[int, int]:
     return n_split, tiles_per_split * _VB
 
 
+@profiling.annotated("rvc.knn")
 def knn_topk(queries: torch.Tensor, vectors: torch.Tensor,
              k: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: exact squared-L2 k-NN. For a CUDA tensor it launches the kernel

@@ -8,6 +8,7 @@ relative), presets, ``inspect_artifacts``, ``extras``, ``py_kill`` and
 ``check_environment`` and profiling helpers without a card.
 """
 
+import json
 import os
 import signal
 import subprocess
@@ -345,13 +346,15 @@ def test_environment_and_profiling_without_a_card(tmp_path, capsys):
     assert isinstance(report["kernels_built"], list)
     assert "wheels present: " in capsys.readouterr().out
 
-    timer = profiling.StageTimer()
     with profiling.device_trace(str(tmp_path / "trace")):
-        with timer.stage("work"), profiling.annotate("work"):
+        with profiling.request(160) as req, profiling.span("work"), profiling.annotate("op"):
             torch.ones(64).sum()
-    assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
-    summary = timer.summary()
-    assert summary["work"]["count"] == 1
-    assert timer.dump(str(tmp_path / "t.json")) == open(tmp_path / "t.json").read()
-    if not torch.cuda.is_available():
-        assert profiling.memory_stats() == {}
+    with open(tmp_path / "trace" / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    names = {e["name"] for e in events if e.get("cat") == "user_annotation"}
+    assert {"rvc.request", "work", "op"} <= names
+    record = profiling.requests()[-1]
+    assert record["id"] == req.id and [s["name"] for s in record["spans"]] == [
+        "rvc.request", "work"]
+    assert [e["name"] for e in events if e.get("cat") == profiling.TRACK_CAT] == [
+        "rvc.request", "work"]
