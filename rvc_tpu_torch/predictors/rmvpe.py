@@ -9,7 +9,14 @@ Activations are NCHW ([B, C, T, mel]); module names follow the reference
 ``E2E`` state-dict layout that ``convert_torch_rmvpe`` reads, except the
 BiGRU (``fc.0.gru``), which keeps the JAX module's pre-folded biases:
 the input bias carries b_ih + b_hh for the r and z gates, the n gate keeps
-b_hn inside the recurrent term. Batch norm uses its running statistics."""
+b_hn inside the recurrent term. Batch norm uses its running statistics.
+
+RMVPE is inference-only (``E2EModel.forward`` runs without gradients, and
+``bigru`` has no backward). The weights each forward derives (a batch
+norm's scale and shift, the BiGRU's stacked recurrent weights) are kept in
+``WeightCache``s on their modules, rebuilt when a tensor they come from
+changes or moves, each rebuild counted as ``rmvpe_norm_builds``: a warm
+forward launches only the activations' kernels."""
 
 from __future__ import annotations
 
@@ -23,10 +30,13 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.bigru import bigru
 from ..ops.mel import mel_filterbank
+from ..ops.resblock import WeightCache
 from ..ops.stft import stft_magnitude
 from .bucketing import bucket_samples, reflect_to
 from .cents import weighted_cents_decode
 
+# the recorder's counter of RMVPE's rebuilt derived weights
+BUILDS = "rmvpe_norm_builds"
 N_MELS = 128
 N_CLASS = 360
 SR = 16000
@@ -36,7 +46,9 @@ HOP = 160
 
 class BatchNorm(nn.Module):
     """Inference batch norm over dim 1 with running statistics; the affine
-    is folded in float32 and applied in the input's dtype."""
+    is folded in float32 and applied in the input's dtype. The folded scale
+    and shift are kept per input dtype, device and rank until a parameter or
+    statistic changes."""
 
     def __init__(self, channels: int, eps: float = 1e-5):
         super().__init__()
@@ -45,12 +57,19 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
+        self._folded = WeightCache(BUILDS)
 
     def forward(self, x):
-        scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
-        shift = self.bias.float() - self.running_mean.float() * scale
-        shape = (1, -1) + (1,) * (x.dim() - 2)
-        return x * scale.to(x.dtype).reshape(shape) + shift.to(x.dtype).reshape(shape)
+        def fold():  # (scale, shift) in x's dtype, shaped to broadcast over x
+            scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
+            shift = self.bias.float() - self.running_mean.float() * scale
+            shape = (1, -1) + (1,) * (x.dim() - 2)
+            return scale.to(x.dtype).reshape(shape), shift.to(x.dtype).reshape(shape)
+
+        scale, shift = self._folded.get(
+            (self.weight, self.bias, self.running_mean, self.running_var),
+            (x.dtype, x.device, x.dim()), fold)
+        return x * scale + shift
 
 
 class ConvBlockRes(nn.Module):
@@ -160,12 +179,15 @@ class FusedBiGRU(nn.Module):
             self.register_parameter(f"bi_{tag}", nn.Parameter(torch.zeros(3 * hidden)))
             self.register_parameter(f"wh_{tag}", nn.Parameter(torch.zeros(hidden, 3 * hidden)))
             self.register_parameter(f"bhn_{tag}", nn.Parameter(torch.zeros(hidden)))
+        self._stacked = WeightCache(BUILDS)
 
     def forward(self, x):  # [B, T, F] -> [B, T, 2H]
         xi_f = x @ self.wi_fwd + self.bi_fwd                        # [B, T, 3H]
         xi_b = x @ self.wi_bwd + self.bi_bwd
-        wh = torch.stack([self.wh_fwd, self.wh_bwd])                # [2, H, 3H]
-        bn = torch.stack([self.bhn_fwd, self.bhn_bwd])              # [2, H]
+        wh, bn = self._stacked.get(                                 # [2, H, 3H], [2, H]
+            (self.wh_fwd, self.wh_bwd, self.bhn_fwd, self.bhn_bwd), None,
+            lambda: (torch.stack([self.wh_fwd, self.wh_bwd]),
+                     torch.stack([self.bhn_fwd, self.bhn_bwd])))
         return bigru(xi_f, xi_b, wh, bn)
 
 

@@ -489,7 +489,7 @@ def test_weight_cache_keeps_no_graph_alive():
     w = v * saved
     ref = weakref.ref(saved)
     cache.get([w], "k", lambda: w.detach() + 1)
-    assert all(not t.requires_grad and t.grad_fn is None for t in cache._refs)
+    assert all(not t.requires_grad and t.grad_fn is None for t in cache._entry[2])
     del w, saved
     gc.collect()
     assert ref() is None
