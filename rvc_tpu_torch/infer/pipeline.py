@@ -734,7 +734,8 @@ class Pipeline:
         """Full conversion of a 16 kHz waveform -> tgt_sr waveform. An input
         up to ``t_max`` with RMVPE pitch and no external f0 takes the fused
         path; the rest (and every other f0 method) take the windowed
-        path. One request of the recorder (``utils/profiling.py``)."""
+        path. One request of the recorder (``utils/profiling.py``); the
+        windowed path counts its ``windows``."""
         if pitch_guidance:
             check_f0_method(f0_method)
         with profiling.request(audio.shape[0]) as req:
@@ -742,7 +743,8 @@ class Pipeline:
                 index_arr = (self._index_on_device(index_vectors)
                              if index_vectors is not None and index_rate > 0 else None)
                 audio = self._highpass(audio)
-                opt_ts = self._find_cut_points(audio)
+                with span("rvc.cut_points"):
+                    opt_ts = self._find_cut_points(audio)
                 audio_pad = np.pad(audio, (self.t_pad, self.t_pad), mode="reflect")
             p_len = audio_pad.shape[0] // WINDOW
 
@@ -782,6 +784,7 @@ class Pipeline:
             segments.append(audio_pad[t:] if t is not None else audio_pad)
             seg_pitches.append(pitch[tail] if pitch is not None else None)
             seg_pitchfs.append(pitchf[tail] if pitchf is not None else None)
+            profiling.count("windows", len(segments))
 
             req.bucket = max(self._bucket_len(len(seg)) for seg in segments)
             gen = generator if generator is not None else self._generator(0)

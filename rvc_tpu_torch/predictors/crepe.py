@@ -15,11 +15,14 @@ from __future__ import annotations
 from typing import Optional, Union
 
 import numpy as np
+from numpy.lib.stride_tricks import sliding_window_view
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..utils import profiling
+from ..utils.profiling import annotated, span
 from .cents import CENTS_MAPPING, N_CLASS, weighted_cents_decode
 
 SR = 16000
@@ -32,19 +35,20 @@ KERNELS = (512, 64, 64, 64, 64, 64)
 STRIDES = (4, 1, 1, 1, 1, 1)
 # 'same'-style padding of the time axis: (254, 254) first, (31, 32) after
 PADS = ((254, 254),) + ((31, 32),) * 5
-# the JAX package's batch norm epsilon (flax's default), kept for parity
-BN_EPS = 1e-5
+# torchcrepe's batch-norm epsilon, which its checkpoints were trained with
+# (the JAX package computes flax's 1e-5; its parity tests pass that)
+BN_EPS = 1e-3
 
 
 class CrepeModel(nn.Module):
-    def __init__(self, capacity: str = "full"):
+    def __init__(self, capacity: str = "full", eps: float = BN_EPS):
         super().__init__()
         mult = CAPACITIES[capacity]
         chans = (1,) + tuple(f * mult for f in BASE_FILTERS)
         for i in range(6):
             setattr(self, f"conv{i + 1}", nn.Conv2d(
                 chans[i], chans[i + 1], (KERNELS[i], 1), (STRIDES[i], 1)))
-            setattr(self, f"conv{i + 1}_BN", nn.BatchNorm2d(chans[i + 1], eps=BN_EPS))
+            setattr(self, f"conv{i + 1}_BN", nn.BatchNorm2d(chans[i + 1], eps=eps))
         self.classifier = nn.Linear(4 * chans[-1], N_CLASS)
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
@@ -70,13 +74,17 @@ def _decode_weighted(salience: np.ndarray) -> np.ndarray:
 _VITERBI_W = 12
 
 
-def _decode_viterbi(salience: np.ndarray) -> np.ndarray:
-    """Viterbi smoothing over pitch bins (torchcrepe's default decoder):
-    a triangular transition prior over the bin distance, zero outside the
-    +-11-bin band, so each step is 23 shifted adds; then the weighted
-    average around the path."""
+def _viterbi_path(salience: np.ndarray) -> np.ndarray:
+    """The Viterbi path over pitch bins (torchcrepe's default decoder): a
+    triangular transition prior over the bin distance, zero outside the
+    +-11-bin band. A step is one frame on the host: the 23 band-shifted
+    sources read as one strided view of the padded previous row, one add
+    and one max. Only the values are kept; the backtrack finds each argmax
+    again among the 23 sources of the path's bin, first in order as the
+    step's argmax would."""
     t, n = salience.shape
-    offs = np.arange(-(_VITERBI_W - 1), _VITERBI_W)
+    r = _VITERBI_W - 1
+    offs = np.arange(-r, _VITERBI_W)
     w_band = (_VITERBI_W - np.abs(offs)).astype(np.float64)
     logw = np.log(w_band)
     log_rowsum = np.log(np.convolve(np.ones(n), w_band, mode="same"))
@@ -85,26 +93,29 @@ def _decode_viterbi(salience: np.ndarray) -> np.ndarray:
     obs = obs / np.maximum(obs.sum(axis=1, keepdims=True), 1e-12)
     log_obs = np.log(obs + 1e-12)
 
+    # a[i] = dp[i] - log_rowsum, padded by r of -inf a side; src[i][k, j] is
+    # the source a[i][j - offs[k]] of destination j
+    a_pad = np.full((t, n + 2 * r), -np.inf)
+    a = a_pad[:, r:r + n]
+    src = sliding_window_view(a_pad, n, axis=1)[:, ::-1]
+    lw, cand = logw[:, None], np.empty((len(offs), n))
     dp = np.full(n, np.log(1.0 / n)) + log_obs[0]
-    back = np.zeros((t, n), np.int32)
-    cols = np.arange(n)
     for i in range(1, t):
-        a = dp - log_rowsum
-        cand = np.full((len(offs), n), -np.inf)
-        for oi, o in enumerate(offs):  # destination j <- source j - o
-            if o >= 0:
-                cand[oi, o:] = a[:n - o] + logw[oi]
-            else:
-                cand[oi, :n + o] = a[-o:] + logw[oi]
-        best = cand.argmax(axis=0)
-        dp = cand[best, cols] + log_obs[i]
-        back[i] = cols - offs[best]
+        np.subtract(dp, log_rowsum, out=a[i - 1])
+        np.add(src[i - 1], lw, out=cand)
+        dp = cand.max(axis=0)
+        dp += log_obs[i]
     path = np.zeros(t, np.int64)
-    path[-1] = dp.argmax()
+    j = path[-1] = dp.argmax()
     for i in range(t - 2, -1, -1):
-        path[i] = back[i + 1, path[i + 1]]
+        j = path[i] = j - offs[(a_pad[i, j:j + 2 * r + 1][::-1] + logw).argmax()]
+    return path
+
+
+def _decode_viterbi(salience: np.ndarray) -> np.ndarray:
+    """The weighted average of cents around the Viterbi path."""
     return weighted_cents_decode(torch.from_numpy(salience),
-                                 torch.from_numpy(path)).numpy()
+                                 torch.from_numpy(_viterbi_path(salience))).numpy()
 
 
 class CREPE:
@@ -119,9 +130,11 @@ class CREPE:
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, capacity: str = "full",
-                              device: Union[str, torch.device] = "cuda") -> "CREPE":
+                              device: Union[str, torch.device] = "cuda",
+                              eps: float = BN_EPS) -> "CREPE":
         """Load a torchcrepe state_dict. The capacity is the checkpoint's
-        (the classifier takes 64 x multiplier inputs), whatever was asked."""
+        (the classifier takes 64 x multiplier inputs), whatever was asked;
+        ``eps`` is the batch norms' epsilon."""
         sd = torch.load(path, map_location="cpu", weights_only=True)
         in_features = int(sd["classifier.weight"].shape[1])
         detected = {64 * m: c for c, m in CAPACITIES.items()}.get(in_features)
@@ -132,7 +145,7 @@ class CREPE:
         if detected != capacity:
             print(f"crepe checkpoint at {path} is capacity {detected!r}; "
                   f"using it instead of the requested {capacity!r}")
-        model = CrepeModel(detected)
+        model = CrepeModel(detected, eps)
         # every tensor but the batch norms' step counters
         keys = [k for k in model.state_dict() if not k.endswith("num_batches_tracked")]
         missing = [k for k in keys if k not in sd]
@@ -141,6 +154,7 @@ class CREPE:
         model.load_state_dict({k: sd[k].float() for k in keys}, strict=False)
         return cls(detected, model, device)
 
+    @annotated("rvc.crepe")
     @torch.no_grad()
     def salience(self, frames: torch.Tensor) -> torch.Tensor:
         """[N, 1024] raw frames on the device -> [N, 360] salience."""
@@ -152,23 +166,29 @@ class CREPE:
                 fmin: float = 50.0, fmax: float = 1100.0,
                 decoder: str = "viterbi", batch_size: int = 512) -> np.ndarray:
         """audio [T] at 16 kHz -> f0 [T // hop_length + 1] (centered
-        frames, torchcrepe.predict's pad=True)."""
+        frames, torchcrepe.predict's pad=True). Spans ``rvc.f0_net`` (the
+        framing, the salience batches, the salience's copy to the host) and
+        ``rvc.f0_decode`` (the range mask, the decoder, the pitch); counter
+        ``f0_frames``."""
         audio = np.asarray(audio, np.float32)
-        pad = WINDOW // 2
-        padded = torch.from_numpy(np.pad(audio, (pad, pad))).to(self.device)
-        frames = padded.unfold(0, WINDOW, hop_length)
-        salience = torch.cat([self.salience(frames[i:i + batch_size])
-                              for i in range(0, frames.shape[0], batch_size)])
-        salience = salience.float().cpu().numpy()
+        with span("rvc.f0_net"):
+            pad = WINDOW // 2
+            padded = torch.from_numpy(np.pad(audio, (pad, pad))).to(self.device)
+            frames = padded.unfold(0, WINDOW, hop_length)
+            profiling.count("f0_frames", frames.shape[0])
+            salience = torch.cat([self.salience(frames[i:i + batch_size])
+                                  for i in range(0, frames.shape[0], batch_size)])
+            salience = salience.float().cpu().numpy()
 
-        cents_lo = 1200 * np.log2(fmin / 10.0)
-        cents_hi = 1200 * np.log2(fmax / 10.0)
-        salience[:, (CENTS_MAPPING < cents_lo) | (CENTS_MAPPING > cents_hi)] = 0.0
-        cents = (_decode_viterbi(salience) if decoder == "viterbi"
-                 else _decode_weighted(salience))
-        f0 = 10.0 * (2.0 ** (cents / 1200.0))
-        # no periodicity gate, as the reference; frames with no salience at
-        # all are unvoiced
-        f0[salience.max(axis=1) < 1e-3] = 0.0
-        return f0.astype(np.float32)
+        with span("rvc.f0_decode"):
+            cents_lo = 1200 * np.log2(fmin / 10.0)
+            cents_hi = 1200 * np.log2(fmax / 10.0)
+            salience[:, (CENTS_MAPPING < cents_lo) | (CENTS_MAPPING > cents_hi)] = 0.0
+            cents = (_decode_viterbi(salience) if decoder == "viterbi"
+                     else _decode_weighted(salience))
+            f0 = 10.0 * (2.0 ** (cents / 1200.0))
+            # no periodicity gate, as the reference; frames with no salience
+            # at all are unvoiced
+            f0[salience.max(axis=1) < 1e-3] = 0.0
+            return f0.astype(np.float32)
 

@@ -32,6 +32,8 @@ from ..ops.bigru import bigru
 from ..ops.mel import mel_filterbank
 from ..ops.resblock import WeightCache
 from ..ops.stft import stft_magnitude
+from ..utils import profiling
+from ..utils.profiling import span
 from .bucketing import bucket_samples, reflect_to
 from .cents import weighted_cents_decode
 
@@ -316,12 +318,20 @@ class RMVPE:
         pad = (-n_frames) % 32
         if pad:
             mel = F.pad(mel.transpose(1, 2), (0, pad), mode="reflect").transpose(1, 2)
+        profiling.count("f0_frames", mel.shape[0] * mel.shape[1])
         return self.model(mel.to(dtype)).float()[:, :n_frames]
 
     def infer_batch(self, audios: List[np.ndarray],
                     thred: float = 0.03) -> List[np.ndarray]:
         """Several waveforms in one batch (``salience_batch``), the true
-        frame counts sliced after."""
-        hidden = self.salience_batch(audios)
-        f0 = torch.stack([decode_salience(h, thred) for h in hidden]).cpu().numpy()
+        frame counts sliced after. Spans ``rvc.f0_net`` (the mel, the
+        forward and the wait for it) and ``rvc.f0_decode`` (the decode and
+        the f0's copy to the host); counter ``f0_frames``, the mel frames
+        the network ran."""
+        with span("rvc.f0_net"):
+            hidden = self.salience_batch(audios)
+            if hidden.device.type == "cuda":
+                torch.cuda.current_stream(hidden.device).synchronize()
+        with span("rvc.f0_decode"):
+            f0 = torch.stack([decode_salience(h, thred) for h in hidden]).cpu().numpy()
         return [f0[i, : len(a) // HOP + 1] for i, a in enumerate(audios)]

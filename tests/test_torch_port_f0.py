@@ -5,7 +5,9 @@ bridges (or through a checkpoint file in the reference layout):
 - YIN: the same contour (within 1e-4 relative), on a numpy array and on a
   tensor;
 - CREPE tiny: the salience within 1e-4, f0 from both decoders within 1e-4
-  relative; ``from_torch_checkpoint`` on a torchcrepe file;
+  relative; ``from_torch_checkpoint`` on a torchcrepe file (the port's
+  models built with JAX's batch-norm epsilon, 1e-5, where the port's
+  default is torchcrepe's 1e-3);
 - a narrow FCPE with attention and with ``conv_only``: the latent within
   1e-4, ``compute_f0`` with and without ``p_len`` and a fractional
   threshold; ``from_torch_checkpoint`` on a torchfcpe file with a
@@ -30,6 +32,7 @@ from test_torch_port_models import _fix_var, _random_params, _rel
 from test_torch_port_pipeline import E2E
 
 FCPE_NARROW = dict(hidden_dims=32, n_layers=2, n_heads=2)
+JAX_BN_EPS = 1e-5   # flax's batch-norm epsilon, which the JAX package's CREPE keeps
 
 
 def _voice(n, seed=0, f=210.0):
@@ -50,7 +53,7 @@ def crepe_pair():
     ev = _random_params(FlaxCrepe("tiny").init, jax.random.PRNGKey(0),
                         jnp.zeros((1, 1024)), seed=21)
     params, stats = ev["params"], _fix_var(ev["batch_stats"])
-    model = CrepeModel("tiny")
+    model = CrepeModel("tiny", eps=JAX_BN_EPS)
     model.load_state_dict(convert.crepe_state_dict(params, stats), strict=False)
     return (JaxCREPE("tiny", jax.tree.map(jnp.asarray, params),
                      jax.tree.map(jnp.asarray, stats)),
@@ -154,7 +157,7 @@ def test_checkpoint_loaders_match_jax(crepe_pair, fcpe_pair, tmp_path):
     torch.save(sd, crepe_path)
     audio = _voice(8000, seed=3)
     ref = JaxCREPE.from_torch_checkpoint(crepe_path, "full").predict(audio)
-    out = CREPE.from_torch_checkpoint(crepe_path, "full", device="cpu")
+    out = CREPE.from_torch_checkpoint(crepe_path, "full", device="cpu", eps=JAX_BN_EPS)
     assert out.capacity == "tiny"
     assert _rel(ref, out.predict(audio)) <= 1e-4
 

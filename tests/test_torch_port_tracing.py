@@ -1,6 +1,7 @@
 """The program's recorder (``rvc_tpu_torch/utils/profiling.py``) on the
 serving path, on the CPU with tiny random models: each request's spans nest
-under ``rvc.request`` on the fused path, the windowed path and
+under ``rvc.request`` on the fused path, the windowed path (its host f0's
+network and decode, with RMVPE and with CREPE, and its counters) and
 ``pipeline_many`` (the stream's drain thread records under the request that
 dispatched its item), and on two threads converting at once; no ``record_function`` range opens without a profiler,
 and with one every span is a range whose start lies on the request's clock;
@@ -43,7 +44,9 @@ KW = dict(sid=1, pitch_shift=2, index_rate=0.75, protect=0.33, filter_radius=3)
 
 STAGES = ("rvc.prep", "rvc.upload", "rvc.dispatch", "rvc.download", "rvc.finish")
 MODELS = ("rvc.mel", "rvc.rmvpe", "rvc.f0", "rvc.hubert", "rvc.retrieval", "rvc.synth")
-FUSED = ("rvc.request",) + STAGES + MODELS + ("rvc.decoder",)
+# the fused path's one span inside rvc.prep: the cut-point search, which
+# returns at once for an input up to x_max
+FUSED = ("rvc.request",) + STAGES + MODELS + ("rvc.decoder", "rvc.cut_points")
 OPS = ("rvc.stage_tails", "rvc.knn", "rvc.bigru")
 
 
@@ -115,6 +118,7 @@ def test_fused_request_spans_nest(fused):
     assert all(parents[n] == "rvc.request" for n in STAGES)
     assert all(parents[n] == "rvc.dispatch" for n in MODELS)
     assert parents["rvc.decoder"] == "rvc.synth"
+    assert parents["rvc.cut_points"] == "rvc.prep"
     assert rec["samples"] == 24000 and rec["bucket"] == fused._bucket_len(24000 + 2 * 48000)
     assert not rec["profiled"] and not rec["failed"]
     assert rec["counters"] == {}    # nothing page-locked, no weights packed: CPU, warm
@@ -138,6 +142,47 @@ def test_windowed_request_records_the_drain_thread(windowed):
     assert names.count("rvc.download_enqueue") == windows
     assert all(parents[n] == "rvc.request" for n in ("rvc.download", "rvc.download_enqueue"))
     assert rec["bucket"] % 16000 == 0 and rec["bucket"] < 112000 + 2 * 16000
+
+
+@pytest.mark.parametrize("method", ["rmvpe", "crepe"])
+def test_windowed_f0_spans_and_counters(windowed, method):
+    """The host f0 splits into the network (``rvc.f0_net``) and the decode
+    (``rvc.f0_decode``); the request counts the frames the network saw
+    (CREPE: the padded input's samples // 160 + 1; RMVPE: its one-second
+    bucket's frames to a multiple of 32) and its windows."""
+    from rvc_tpu_torch.predictors.crepe import CREPE
+
+    pipe, rmvpe = windowed
+    predict = rmvpe.infer_from_audio if method == "rmvpe" else CREPE("tiny", device="cpu").predict
+    (rec,) = _new_records(lambda: pipe.pipeline(
+        _audio(112000), f0_method=method, predictors={method: predict}, **KW))
+    parents = _check_nesting(rec)
+    names = [s["name"] for s in rec["spans"]]
+    assert parents["rvc.f0_net"] == parents["rvc.f0_decode"] == "rvc.host_f0"
+    assert parents["rvc.cut_points"] == "rvc.prep"
+    assert names.count("rvc.f0_net") == names.count("rvc.f0_decode") == 1
+    padded = 112000 + 2 * 16000
+    frames = (padded // 160 + 1 if method == "crepe"
+              else -(-(pipe._bucket_len(padded) // 160 + 1) // 32) * 32)
+    assert rec["counters"]["f0_frames"] == frames
+    assert rec["counters"]["windows"] == names.count("rvc.dispatch") == 4
+
+
+def test_crepe_batches_open_their_range(monkeypatch):
+    from torch.profiler import ProfilerActivity, profile
+
+    from rvc_tpu_torch.predictors.crepe import CREPE
+
+    pred = CREPE("tiny", device="cpu")
+    ranges = _Ranges(profiling.record_function)
+    monkeypatch.setattr(profiling, "record_function", ranges)
+    audio = _audio(16000)
+    pred.predict(audio, batch_size=40)
+    assert ranges.names == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        pred.predict(audio, batch_size=40)
+    assert ranges.names.count("rvc.crepe") == 3         # 101 frames in batches of 40
+    assert {"rvc.f0_net", "rvc.f0_decode"} <= set(ranges.names)
 
 
 def test_pipeline_many_records_a_request_per_clip(fused):
