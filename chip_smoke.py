@@ -108,6 +108,11 @@ Phases, in this order, each printing one JSON line:
   ab       (needs pipeline, windowed) G against the plain step loop it
            replaced, in turns: the ``rmvpe_model`` stage, the warm 10 s
            wall and the 150 s CLI wall
+  crepe    kernel C (CREPE's conv blocks) on a 512-frame batch, full and
+           tiny: ms, bound, launches, its error in single-pass tf32 and in
+           3xTF32 against the plain blocks in float64, the plain blocks'
+           (f32) and cuDNN's TF32 chain's ms and errors, and each full
+           block beside cuDNN's
   trace    (only when asked for) one conversion under torch.profiler:
            device busy time, idle share, the heaviest kernels, and the
            device kernels of one conversion with G and with the plain loop
@@ -120,6 +125,7 @@ Phases, in this order, each printing one JSON line:
                                            # narrow chains; G at its paths'
                                            # and small widths), without the models
     python3 chip_smoke.py env,build,pipeline,files,windowed,ab,trace   # G's A/B
+    python3 chip_smoke.py env,build,crepe  # kernel C alone (about a minute)
 Then a ``{"kernels": [...]}`` line and, last, the result line
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero before
 the result line. There is no CPU fallback: without CUDA the script fails.
@@ -129,6 +135,8 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import copy
+import functools
 import gc
 import glob
 import json
@@ -980,22 +988,34 @@ def _count_rmvpe_forwards():
 
 def _reset_counts():
     from rvc_tpu_torch.ops import bigru as bg
+    from rvc_tpu_torch.ops import crepe_conv as cc
     from rvc_tpu_torch.ops import resblock as rb
     from rvc_tpu_torch.ops import retrieval as rt
 
     rb.reset_launches()
     rt.reset_launches()
     bg.reset_launches()
+    cc.reset_launches()
     _RMVPE_FORWARDS[0] = 0
 
 
 def _counts():
     """The kernels' launch counts, and the RMVPE forwards (``rmvpe_forward``)."""
     from rvc_tpu_torch.ops import bigru as bg
+    from rvc_tpu_torch.ops import crepe_conv as cc
     from rvc_tpu_torch.ops import resblock as rb
     from rvc_tpu_torch.ops import retrieval as rt
 
-    return {**rb.launches, **rt.launches, **bg.launches, "rmvpe_forward": _RMVPE_FORWARDS[0]}
+    return {**rb.launches, **rt.launches, **bg.launches, **cc.launches,
+            "rmvpe_forward": _RMVPE_FORWARDS[0]}
+
+
+def _require_all_launched(counts: dict, where: str, but=("crepe_conv",)) -> None:
+    """Every kernel launched on a path, but those in ``but`` (by default C,
+    where no CREPE runs)."""
+    for name, c in counts.items():
+        if name not in but:
+            require(c > 0, f"kernel {name} was not launched on the {where}")
 
 
 def _require_bigru(counts: dict, where: str) -> None:
@@ -1480,7 +1500,7 @@ _CHILD_CLI = """import json, sys, time
 import torch
 sys.path.insert(0, {repo!r})
 from rvc_tpu_torch import cli
-from rvc_tpu_torch.ops import bigru as bg, resblock as rb, retrieval as rt
+from rvc_tpu_torch.ops import bigru as bg, crepe_conv as cc, resblock as rb, retrieval as rt
 from rvc_tpu_torch.predictors import rmvpe as rp
 n, fwd = [0], rp.E2EModel.forward
 def counted(self, mel):
@@ -1492,7 +1512,7 @@ rc = cli.main(sys.argv[1:])
 torch.cuda.synchronize()
 print(json.dumps({{"rc": rc, "wall_s": time.perf_counter() - t0,
                   "launches": {{**rb.launches, **rt.launches, **bg.launches,
-                               "rmvpe_forward": n[0]}}}}))
+                               **cc.launches, "rmvpe_forward": n[0]}}}}))
 """
 
 
@@ -2934,7 +2954,8 @@ def _f0_card_vs_cpu(paths: dict, audio: np.ndarray) -> dict:
     """Each predictor from the same checkpoint on the card and on the CPU,
     both in float32: f0 within 1e-3 relative on the frames both voice, and
     the voicing equal except on frames whose confidence is within 1e-4 of
-    the threshold."""
+    the threshold; CREPE on the card through kernel C."""
+    from rvc_tpu_torch.ops import crepe_conv
     from rvc_tpu_torch.predictors.f0_extractor import build_predictors
 
     out = {}
@@ -2942,9 +2963,12 @@ def _f0_card_vs_cpu(paths: dict, audio: np.ndarray) -> dict:
                           ("crepe-tiny", "crepe_tiny"), ("fcpe", None), ("yin", None)):
         kw = dict(rmvpe_ckpt=paths["rmvpe"], fcpe_ckpt=paths["fcpe"],
                   crepe_ckpt=paths[crepe] if crepe else None)
+        before = crepe_conv.launches["crepe_conv"]
         res = {dev: _f0_and_voicing(method, build_predictors((method,), device=dev,
                                                              **kw)[method], audio)
                for dev in ("cuda", "cpu")}
+        c_launches = crepe_conv.launches["crepe_conv"] - before
+        require(c_launches > 0 or not crepe, f"{method} on the card: kernel C was not launched")
         (f_gpu, v_gpu, c_gpu, thr), (f_cpu, v_cpu, c_cpu, _) = res["cuda"], res["cpu"]
         require(f_gpu.shape == f_cpu.shape, f"{method}: f0 {f_gpu.shape} vs {f_cpu.shape}")
         both = (f_gpu > 0) & (f_cpu > 0)
@@ -2956,7 +2980,8 @@ def _f0_card_vs_cpu(paths: dict, audio: np.ndarray) -> dict:
         out[method] = {"frames": int(f_cpu.size), "voiced_frames": int(v_cpu.sum()),
                        "f0_max_rel_err": rel, "confidence_max_rel_err": conf_rel,
                        "voicing_flips": int(flips.sum()),
-                       "voicing_flips_near_threshold": int((flips & near).sum())}
+                       "voicing_flips_near_threshold": int((flips & near).sum()),
+                       "crepe_conv_launches": c_launches}
         require(both.sum() > 0, f"{method}: no voiced frame on both devices")
         require(rel <= 1e-3, f"{method}: f0 on the card vs the CPU: rel err {rel}")
         require(not (flips & ~near).any(),
@@ -2979,6 +3004,7 @@ def phase_prep(smi: str, root: str, files: dict):
     cdist + argmin, and each predictor on the card against the CPU."""
     import torch
 
+    from rvc_tpu_torch.ops import crepe_conv
     from rvc_tpu_torch.ops import retrieval as rt
     from rvc_tpu_torch.ops.retrieval import FeatureIndex
     from rvc_tpu_torch.train.index_builder import build_index
@@ -3082,22 +3108,25 @@ def phase_prep(smi: str, root: str, files: dict):
         walls["big_build"] = time.perf_counter() - t0
         emit({"phase": "prep_step", "step": "big_build", "wall_s": walls["big_build"]})
         res["big_build_knn_launches"] = rt.launches["knn_topk"] - before
-        # every other f0 method, 10 s each
+        # every other f0 method, 10 s each; the CREPE methods through C
         for method in PREP_F0_METHODS:
             shutil.copy(f0_paths["crepe_tiny" if method == "crepe-tiny" else "crepe_full"],
                         crepe_pt)
             out = os.path.join(root, f"prep_out_{method}.wav")
+            before = crepe_conv.launches["crepe_conv"]
             cli(f"infer_{method}", ["infer", "--input_path", wav10, "--output_path", out,
                                     "--pth_path", os.path.join(exp, "prep_1e.pth"),
                                     "--f0_method", method])
             _check_wav(out, 479040, f"infer --f0_method {method}")
+            res[f"infer_{method}_crepe_conv"] = crepe_conv.launches["crepe_conv"] - before
+            require(res[f"infer_{method}_crepe_conv"] > 0 or not method.startswith("crepe"),
+                    f"infer --f0_method {method}: kernel C was not launched")
 
     child_counts = {}
     _reset_counts()
     shapes = record_path_shapes(run)
     counts = {k: c + child_counts.get(k, 0) for k, c in _counts().items()}
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched on the dataset path")
+    _require_all_launched(counts, "dataset path", but=())
     _require_bigru(counts, "dataset path")
     # every take but the rejected one, as many 48 kHz samples as the
     # resampler gives it
@@ -3450,8 +3479,7 @@ def phase_dist(smi: str, files: dict, root: str):
     emit({"phase": "dist", "gpu": smi, "plain_ms_per_step": plain["ms"],
           "plain_metrics_last": plain["metrics"][-1], "wall_s": time.perf_counter() - t_start,
           **res})
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched by the sharded batch")
+    _require_all_launched(counts, "sharded batch")
     _require_bigru(counts, "sharded batch")
     for precision in ("fp32", "bf16"):
         worst = max(v for k, v in diffs.items() if k.startswith(precision))
@@ -3624,8 +3652,7 @@ def phase_ui(smi: str, files: dict, root: str):
         if app is not None and getattr(app, "server", None) is not None:
             app.close()
         os.chdir(cwd)
-    for name, c in counts.items():
-        require(c > 0, f"kernel {name} was not launched by the UI")
+    _require_all_launched(counts, "UI")
     _require_bigru(counts, "UI")
 
     # the inference event against the CLI with the same settings
@@ -3735,6 +3762,167 @@ def _profile_train_step(trainer) -> dict:
                           "count": e.count} for e in host]}
 
 
+CREPE_FRAMES = 512  # the song path's batch (CREPE.predict's batch_size)
+CREPE_SONG_S = 60   # the song CREPE.predict runs in phase crepe
+
+
+def _crepe_model(capacity: str, seed: int):
+    """CREPE at ``capacity`` on the card, its weights by the benchmark's
+    rules and its batch norms calibrated on a seeded voice by the reference
+    (``benchmark/windowed.py``'s set-up)."""
+    import torch
+
+    from benchmark import weights
+    from benchmark.reference import crepe as ref
+    from benchmark.traffic import voice
+    from rvc_tpu_torch.predictors import crepe
+
+    model = crepe.CrepeModel(capacity)
+    sd = weights.seeded_state(weights.float_shapes(model), seed, "crepe", "cuda")
+    mult = crepe.CAPACITIES[capacity]
+    arch = {"filters": [f * mult for f in crepe.BASE_FILTERS], "kernels": list(crepe.KERNELS),
+            "strides": list(crepe.STRIDES), "hop": 160}
+    audio = voice(weights.CALIBRATION_SAMPLES, np.random.default_rng(seed),
+                  weights.CALIBRATION_SIGNAL)
+    ref.calibrate(sd, torch.from_numpy(audio).cuda(), arch)
+    model.load_state_dict(sd, strict=False)
+    return model.cuda().eval(), arch
+
+
+def _crepe_useful_flops(convs, frames: int):
+    """Each block's operations on ``frames`` frames counting only the
+    products that reach the signal: per output step, the taps whose input
+    lies inside the block's input (not its zero padding). ``convs`` is
+    ``work/crepe_flops.blocks``'s (steps, c_in, c_out, taps)."""
+    from rvc_tpu_torch.predictors import crepe
+
+    out, l_in = [], crepe.WINDOW
+    for (n, c_in, c_out, k), (_, stride, pad_lo) in zip(convs, crepe.GEOMETRY):
+        pos = stride * np.arange(n)[:, None] + np.arange(k)[None, :] - pad_lo
+        taps = int(((pos >= 0) & (pos < l_in)).sum())
+        out.append(2 * frames * taps * c_in * c_out)
+        l_in = n // 2
+    return out
+
+
+def phase_crepe(smi: str):
+    """Kernel C (``ops/crepe_conv.py``) at the song path's shapes: a batch
+    of 512 frames through CREPE's six blocks, full and tiny, against the
+    plain blocks in f32 (TF32 off) and cuDNN's chain in TF32 (the library
+    yardstick: what the port ran before C): ms, the bound (every product,
+    and only those that reach the signal), the error of each against the
+    plain blocks in float64 (C in single-pass tf32 and in 3xTF32), and for
+    full each block's ms beside cuDNN's. Then ``CREPE.predict`` on a 60 s
+    song, through ``CrepeModel.forward``'s routing: six launches of C a
+    512-frame batch."""
+    import torch
+
+    from benchmark import weights
+    from benchmark.reference import crepe as ref
+    from benchmark.traffic import voice
+    from benchmark.work import crepe_flops
+    from rvc_tpu_torch.ops import crepe_conv
+    from rvc_tpu_torch.predictors import crepe
+
+    switches = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    signal = {**weights.CALIBRATION_SIGNAL, "f0_hz": [110, 660]}
+    rows = {}
+    try:
+        for capacity in ("full", "tiny"):
+            model, arch = _crepe_model(capacity, 19)
+            audio = voice(160 * (CREPE_FRAMES - 1), np.random.default_rng(20), signal)
+            frames = ref.frames_of(torch.from_numpy(audio).cuda())
+            frames = (frames - frames.mean(1, keepdim=True)) / torch.clamp(
+                frames.std(1, keepdim=True), min=1e-10)
+            blocks = model.blocks()
+            out, ms = {}, {}
+            with torch.no_grad():
+                exact = copy.deepcopy(model).double()
+                ref_out = crepe_conv.blocks_plain(frames.double(), exact.blocks(), crepe.PADS)
+                del exact
+                def plain():
+                    return crepe_conv.blocks_plain(frames, blocks, crepe.PADS)
+
+                for name, tf32, kernel in (("plain", False, False), ("library", True, False),
+                                           ("c_tf32", True, True), ("c_3xtf32", False, True)):
+                    torch.backends.cudnn.allow_tf32 = tf32
+                    fn = functools.partial(crepe_conv.crepe_blocks, frames,
+                                           model.packed()) if kernel else plain
+                    out[name] = fn()
+                    torch.cuda.synchronize()
+                    ms[name] = gpu_time_ms(fn, reps=9)
+                torch.backends.cudnn.allow_tf32 = True
+                # one batch through CrepeModel.forward
+                crepe_conv.reset_launches()
+                model(frames)
+                torch.cuda.synchronize()
+                batch_launches = crepe_conv.launches["crepe_conv"]
+                convs = crepe_flops.blocks({**arch, "classifier": [1, 1]})
+                block_flops = [2 * CREPE_FRAMES * n * ci * co * k for n, ci, co, k in convs]
+                useful_flops = _crepe_useful_flops(convs, CREPE_FRAMES)
+                per_block = []
+                if capacity == "full":
+                    x_c, x_l = frames.contiguous(), frames
+                    for blk, b, pad, flops, useful in zip(blocks, model.packed(), crepe.PADS,
+                                                          block_flops, useful_flops):
+                        def library(x, blk=blk, pad=pad):
+                            return crepe_conv.blocks_plain(x, [blk], [pad])
+
+                        c_ms = gpu_time_ms(lambda: crepe_conv.crepe_block(x_c, b), reps=9)
+                        l_ms = gpu_time_ms(lambda: library(x_l), reps=9)
+                        per_block.append({
+                            "block": len(per_block) + 1, "ms": round(c_ms, 4),
+                            "cudnn_tf32_ms": round(l_ms, 4), "three": b.plan.three,
+                            "n_tile": b.plan.n_tile,
+                            "bound_ms": round(1e3 * flops / PEAK_TF32, 4),
+                            "roofline_pct": round(1e5 * flops / PEAK_TF32 / c_ms, 2),
+                            "useful_bound_ms": round(1e3 * useful / PEAK_TF32, 4),
+                            "useful_roofline_pct": round(1e5 * useful / PEAK_TF32 / c_ms, 2)})
+                        # the library's [N, T, C] back to NCHW: a view
+                        x_c, x_l = crepe_conv.crepe_block(x_c, b), \
+                            library(x_l).transpose(1, 2)[..., None]
+                # a song through CREPE.predict: the main path's routing
+                song = voice(16000 * CREPE_SONG_S, np.random.default_rng(21), signal)
+                crepe_conv.reset_launches()
+                f0 = crepe.CREPE(capacity, model, device="cuda").predict(song)
+                song_launches = crepe_conv.launches["crepe_conv"]
+            song_batches = -(-(len(song) // 160 + 1) // CREPE_FRAMES)
+            bound_ms = 1e3 * sum(block_flops) / PEAK_TF32
+            useful_ms = 1e3 * sum(useful_flops) / PEAK_TF32
+
+            def rel(x):
+                return float((x.double() - ref_out).norm() / ref_out.norm())
+
+            row = {"capacity": capacity, "frames": CREPE_FRAMES, "launches": batch_launches,
+                   "song_s": CREPE_SONG_S, "song_batches": song_batches,
+                   "song_launches": song_launches, "song_voiced_frames": int((f0 > 0).sum()),
+                   "ms": round(ms["c_tf32"], 4), "ms_3xtf32": round(ms["c_3xtf32"], 4),
+                   "bound_ms": round(bound_ms, 4), "bound_by": "operations, TF32 495 TFLOP/s",
+                   "roofline_pct": round(100 * bound_ms / ms["c_tf32"], 2),
+                   "useful_bound_ms": round(useful_ms, 4),
+                   "useful_roofline_pct": round(100 * useful_ms / ms["c_tf32"], 2),
+                   "plain_ms": round(ms["plain"], 4), "library_ms": round(ms["library"], 4),
+                   "library": "cuDNN NCHW conv chain, TF32",
+                   "err_tf32": rel(out["c_tf32"]), "err_3xtf32": rel(out["c_3xtf32"]),
+                   "plain_err_f32": rel(out["plain"]), "library_err_tf32": rel(out["library"]),
+                   "per_block": per_block}
+            emit({"phase": "crepe_conv", "gpu": smi, **row})
+            require(batch_launches == 6, f"crepe {capacity}: {batch_launches} launches of C "
+                    "a batch, not 6")
+            require(song_launches == 6 * song_batches,
+                    f"crepe {capacity}: CREPE.predict on {CREPE_SONG_S} s launched C "
+                    f"{song_launches} times for {song_batches} batches")
+            # the limits of tests/test_torch_port_crepe_conv.py
+            require(row["err_tf32"] <= 5e-3 and row["err_3xtf32"] <= 5e-5,
+                    f"crepe {capacity}: C off the float64 blocks: {row['err_tf32']:.3e} "
+                    f"(tf32), {row['err_3xtf32']:.3e} (3xTF32)")
+            rows[capacity] = row
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = switches
+    return {"crepe_conv": rows["full"]}, {"crepe_conv": rows["full"]["song_launches"]}
+
+
 KERNEL_META = {
     "mrf_stage": ("rvc_tpu_torch/csrc/resblock.cu", "rvc_tpu/ops/resblock_pallas.py:437"),
     "resblock_chain": ("rvc_tpu_torch/csrc/resblock_chain.cu",
@@ -3744,6 +3932,9 @@ KERNEL_META = {
     "knn_topk": ("rvc_tpu_torch/csrc/knn.cu", "rvc_tpu/ops/retrieval_pallas.py:125"),
     # no pallas_call: the lax.scan of FusedBiGRU, which XLA runs as one loop
     "bigru": ("rvc_tpu_torch/csrc/bigru.cu", "rvc_tpu/predictors/rmvpe.py:236"),
+    # none: the JAX package's CREPE runs lax convolutions (no Pallas kernel)
+    "crepe_conv": ("rvc_tpu_torch/csrc/crepe_conv.cu",
+                   "none (rvc_tpu/predictors/crepe.py: lax convs)"),
 }
 # the TPU kernels the narrow chain kernel carries: fused_resblock's chains
 # at C <= 64 and fused_mrf's f32 stage tails
@@ -3751,7 +3942,7 @@ NARROW_CARRIES = ["rvc_tpu/ops/resblock_pallas.py:239", "rvc_tpu/ops/resblock_pa
 # the path whose launches and times a kernel's entry of the kernels line
 # reports: the 48 kHz serving path, and for the narrow chain kernel the 10 s
 # RefineGAN conversion through the CLI (phase `zoo`); `unit` where only it ran
-KERNEL_PATH = {"narrow_chain": "zoo_refinegan32"}
+KERNEL_PATH = {"narrow_chain": "zoo_refinegan32", "crepe_conv": "crepe"}
 
 
 def main(argv) -> int:
@@ -3763,7 +3954,7 @@ def main(argv) -> int:
         return 2
     phases = argv[1].split(",") if len(argv) > 1 else [
         "env", "build", "small", "pipeline", "stream", "files", "windowed", "batch",
-        "nof0", "train", "prep", "zoo", "fx", "dist", "ui", "kernels", "stages", "ab"]
+        "nof0", "train", "prep", "zoo", "fx", "dist", "ui", "kernels", "stages", "ab", "crepe"]
     sys.path.insert(0, REPO)
     import rvc_tpu_torch  # noqa: F401  (fails outside a checkout of the repo)
 
@@ -3829,6 +4020,8 @@ def main(argv) -> int:
             phase_trace(run, smi)
         if "ab" in phases and {"pipeline", "windowed"} <= set(phases):
             phase_ab(pipe, audio, run, smi, files, root)
+        if "crepe" in phases:
+            rec_by_path["crepe"], launches["crepe"] = phase_crepe(smi)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     kernels = []

@@ -1,15 +1,16 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels:
 // mbarriers, thread block clusters, bulk and TMA copies into shared memory,
 // shared-memory matrix descriptors, the warpgroup products wgmma m64nNk8 on
-// tf32 and m64nNk16 on bf16 operands, and the 3xTF32 operand split.
+// tf32 and m64nNk16 on bf16 operands, the 3xTF32 operand split and the
+// tf32 rounding of a single-pass operand.
 //
 // Operand layouts. Both operands of a wgmma are K-major here (the depth is
 // contiguous). Two layouts are used:
 //
-// (a) Without swizzle (resblock_chain.cu and resblock_narrow.cu in tf32,
-//     resblock.cu in bf16). The tile is cut into 16-byte depth groups (4
-//     floats or 8 bf16), and one group holds all rows of the tile, 16 bytes
-//     per row; for tf32:
+// (a) Without swizzle (resblock_chain.cu, resblock_narrow.cu and
+//     crepe_conv.cu in tf32, resblock.cu in bf16). The tile is cut into
+//     16-byte depth groups (4 floats or 8 bf16), and one group holds all
+//     rows of the tile, 16 bytes per row; for tf32:
 //       byte offset of (row, depth) = ((depth / 4) * rows + row) * 16 + (depth % 4) * 4
 //     An 8-row x 16-byte core matrix is then 128 contiguous bytes at any
 //     row, so a tile may start at any row (a conv tap is a row offset), rows
@@ -48,6 +49,23 @@ __device__ __forceinline__ float tf32_small(float v) {
 __device__ __forceinline__ float4 tf32_small(float4 v) {
   return make_float4(tf32_small(v.x), tf32_small(v.y), tf32_small(v.z),
                      tf32_small(v.w));
+}
+
+// The big part itself, v with its low 13 mantissa bits cleared: a plane of
+// exact tf32 values, whatever the tensor cores do with an f32's low bits.
+__device__ __forceinline__ float4 tf32_big(float4 v) {
+  return make_float4(__uint_as_float(__float_as_uint(v.x) & 0xffffe000u),
+                     __uint_as_float(__float_as_uint(v.y) & 0xffffe000u),
+                     __uint_as_float(__float_as_uint(v.z) & 0xffffe000u),
+                     __uint_as_float(__float_as_uint(v.w) & 0xffffe000u));
+}
+
+// The tf32 value nearest v (ties away from zero), as cuDNN rounds its TF32
+// operands: a single-pass product then errs by half a tf32 unit, not one.
+__device__ __forceinline__ float tf32_round(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
 }
 
 // ---- mbarrier -----------------------------------------------------------
@@ -387,6 +405,56 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[88], uint64_t a,
         "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
         "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
         "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The same for N = 16, 32 and 64 (crepe_conv.cu's narrow output widths):
+// d (64 x N, f32) += a (64 x 8) * b^T (N x 8), both from shared memory.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[8], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[16], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_tf32(float (&d)[32], uint64_t a, uint64_t b,
+                                           int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d));
 }
 

@@ -7,7 +7,10 @@ pool) and a Linear to a 360-bin sigmoid salience; f0 from the cents of a
 weighted local average around the argmax or around a Viterbi path. The
 module carries torchcrepe's names (``conv{i}``, ``conv{i}_BN``,
 ``classifier``), so a torchcrepe checkpoint loads as it is. The salience
-runs batched on the model's device; the decode runs on the host.
+runs batched on the model's device; the decode runs on the host. On the
+card each block is one launch of kernel C (``ops/crepe_conv.py``), its
+packed weights and folded batch norms built once per weight version
+(counter ``crepe_packs``); on the CPU the blocks run as plain PyTorch.
 """
 
 from __future__ import annotations
@@ -17,10 +20,11 @@ from typing import Optional, Union
 import numpy as np
 from numpy.lib.stride_tricks import sliding_window_view
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
+from ..ops import crepe_conv
+from ..ops.resblock import WeightCache
 from ..utils import profiling
 from ..utils.profiling import annotated, span
 from .cents import CENTS_MAPPING, N_CLASS, weighted_cents_decode
@@ -40,6 +44,19 @@ PADS = ((254, 254),) + ((31, 32),) * 5
 BN_EPS = 1e-3
 
 
+def _geometry():
+    """Each block's (output steps before the pool, stride, left padding)."""
+    out, length = [], WINDOW
+    for k, s, (lo, hi) in zip(KERNELS, STRIDES, PADS):
+        length = (length + lo + hi - k) // s + 1
+        out.append((length, s, lo))
+        length //= 2
+    return tuple(out)
+
+
+GEOMETRY = _geometry()
+
+
 class CrepeModel(nn.Module):
     def __init__(self, capacity: str = "full", eps: float = BN_EPS):
         super().__init__()
@@ -50,18 +67,39 @@ class CrepeModel(nn.Module):
                 chans[i], chans[i + 1], (KERNELS[i], 1), (STRIDES[i], 1)))
             setattr(self, f"conv{i + 1}_BN", nn.BatchNorm2d(chans[i + 1], eps=eps))
         self.classifier = nn.Linear(4 * chans[-1], N_CLASS)
+        self._packs = WeightCache("crepe_packs")
+
+    def blocks(self):
+        return [(getattr(self, f"conv{i + 1}"), getattr(self, f"conv{i + 1}_BN"))
+                for i in range(6)]
+
+    def packed(self):
+        """Kernel C's packed weights and folded batch norms at the precision
+        ``torch.backends.cudnn.allow_tf32`` asks for (single-pass tf32 where
+        set, else 3xTF32; conv1 3xTF32 at either), built when a weight or
+        running statistic changes."""
+        three = not torch.backends.cudnn.allow_tf32
+        blocks = self.blocks()
+        tensors = [t for conv, bn in blocks for t in (
+            conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)]
+        return self._packs.get(tensors, (three, tuple(bn.eps for _, bn in blocks)),
+                               lambda: crepe_conv.pack_blocks(blocks, GEOMETRY, three))
 
     def forward(self, frames: torch.Tensor) -> torch.Tensor:
-        """frames [N, 1024] (already normalized) -> salience [N, 360]."""
-        x = frames[:, None, :, None]
-        for i in range(6):
-            x = F.pad(x, (0, 0) + PADS[i])
-            x = F.relu(getattr(self, f"conv{i + 1}")(x))
-            x = getattr(self, f"conv{i + 1}_BN")(x)
-            x = F.max_pool2d(x, (2, 1), (2, 1))
-        # [N, C, H, 1] -> time-major, channels inner
-        x = x.permute(0, 2, 1, 3).reshape(x.shape[0], -1)
-        return torch.sigmoid(self.classifier(x))
+        """frames [N, 1024] (already normalized) -> salience [N, 360]: the
+        blocks through kernel C for a CUDA tensor (float32 only; inference:
+        the batch norms' running statistics), as plain PyTorch on the CPU."""
+        if frames.device.type == "cpu":
+            x = crepe_conv.blocks_plain(frames, self.blocks(), PADS)
+        else:
+            if self.training or (torch.is_grad_enabled() and (
+                    frames.requires_grad or any(p.requires_grad for p in self.parameters()))):
+                raise RuntimeError("CrepeModel on the card runs inference only (kernel C "
+                                   "has no backward): call .eval() and run it under "
+                                   "torch.no_grad()")
+            x = crepe_conv.crepe_blocks(frames, self.packed())
+        # time-major, channels inner
+        return torch.sigmoid(self.classifier(x.reshape(x.shape[0], -1)))
 
 
 def _decode_weighted(salience: np.ndarray) -> np.ndarray:
