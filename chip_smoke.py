@@ -586,6 +586,7 @@ def _check_tails(check, kind, x, chains, ks, dil, slope, on_paths):
     import torch
 
     from rvc_tpu_torch.ops import resblock as rb
+    from rvc_tpu_torch.utils.weight_cache import WeightCache
 
     b, c, t = x.shape
     bf16 = x.dtype == torch.bfloat16
@@ -606,7 +607,7 @@ def _check_tails(check, kind, x, chains, ks, dil, slope, on_paths):
     route = rb.stage_route(c, x.dtype, ks, dil) if kind == "stage" else "chains"
     if route != "chains":  # one launch for the whole stage
         name = "mrf_stage" if route == "k1" else "narrow_chain"
-        cache, wide_caches = rb.WeightCache(), [rb.WeightCache() for _ in chains]
+        cache, wide_caches = WeightCache(), [WeightCache() for _ in chains]
         extra = {}
         if name == "narrow_chain":
             extra = {"cudnn_bf16_ms": cudnn_bf16(chains), "wide_ms": lambda: _stage_wide(
@@ -623,7 +624,7 @@ def _check_tails(check, kind, x, chains, ks, dil, slope, on_paths):
     for k, ch in zip(ks, chains):  # one launch of the narrow kernel, or 6 or more of K2
         narrow = rb.chain_route(c, x.dtype, k, dil) == "narrow"
         name = "narrow_chain" if narrow else "resblock_chain"
-        cache, wide_cache = rb.WeightCache(), rb.WeightCache()
+        cache, wide_cache = WeightCache(), WeightCache()
         extra = {"cudnn_bf16_ms": cudnn_bf16([ch])}
         if narrow:
             extra["wide_ms"] = lambda ch=ch, wc=wide_cache: rb._chain_wide(
@@ -789,6 +790,7 @@ def phase_kernel_grads(grad_uses, gen):
     import torch
 
     from rvc_tpu_torch.ops import resblock as rb
+    from rvc_tpu_torch.utils.weight_cache import WeightCache
 
     dev = torch.device("cuda")
     per_step = collections.defaultdict(
@@ -813,8 +815,8 @@ def phase_kernel_grads(grad_uses, gen):
                       for ch in chains32]
             flat = [x] + [w for ch in chains for part in ch for w in part]
             cot = cot32.to(dtype)
-            caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
-            wide_caches = [rb.WeightCache() for _ in range(len(ks) + 1)]
+            caches = [WeightCache() for _ in range(len(ks) + 1)]
+            wide_caches = [WeightCache() for _ in range(len(ks) + 1)]
             if stage:
                 def kernel():
                     return rb.mrf_stage(x, chains, ks, dil, slope, cache=caches[-1])
@@ -1069,7 +1071,7 @@ def _weight_cache_builds(decoder) -> int:
     """How often the decoder's stage tails have folded or packed weights:
     the builds of every weight cache on its modules (each chain's and
     each stage's), whichever the decoder."""
-    from rvc_tpu_torch.ops.resblock import WeightCache
+    from rvc_tpu_torch.utils.weight_cache import WeightCache
 
     n = 0
     for m in decoder.modules():

@@ -20,7 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.resblock import WeightCache, resblock_chain
+from ..ops.resblock import resblock_chain
+from ..utils.weight_cache import WeightCache
 
 LRELU_SLOPE = 0.1
 

@@ -15,7 +15,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ...ops.resblock import WeightCache
+from ...utils.weight_cache import WeightCache
 from ..commons import Conv1d, ConvTranspose1d, ResBlock, leaky_relu
 from . import nsf
 

@@ -22,7 +22,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ...ops.resblock import WeightCache
+from ...utils.weight_cache import WeightCache
 from ..commons import (LRELU_SLOPE, ChainBlock, Conv1d, ConvTranspose1d,
                        leaky_relu, source_downsample_geometry)
 from . import nsf

@@ -21,7 +21,8 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from ...ops.resblock import WeightCache, mrf_stage
+from ...ops.resblock import mrf_stage
+from ...utils.weight_cache import WeightCache
 from ..commons import (ChainBlock, Conv1d, ConvTranspose1d, ResBlock,
                        leaky_relu, source_downsample_geometry)
 from .sine import SineGenerator

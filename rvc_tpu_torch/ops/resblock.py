@@ -8,7 +8,8 @@ takes its plain PyTorch version (``mrf_stage_plain`` /
 Signals are [B, C, T]. Weights are the folded (weight-norm applied) conv
 weights in torch layout [C_out, C_in, K], one per dilation, and biases [C];
 each wrapper packs them for its kernel, and keeps the packed weights in the
-``WeightCache`` the caller hands it, so that a module packs once.
+``WeightCache`` (``utils/weight_cache.py``) the caller hands it, so that a
+module packs once.
 
 K1 (``csrc/resblock.cu``, C <= 128, bf16 input) runs every chain of a stage
 in one launch of persistent blocks: ``wgmma`` bf16 products with time on the
@@ -33,12 +34,11 @@ scales by 1/n.
 
 Which kernel runs is the routes' choice, and nothing else's:
 ``stage_route`` gives a stage tail to K1 (bf16) or to the narrow kernel
-(f32, where ``NARROW_ROUTE`` sends the width) in one launch where that
-kernel's planner takes it, and otherwise to its chains one by one (then
-the mean in f32); ``chain_route`` gives a chain to the narrow kernel where
-``NARROW_ROUTE`` sends the width and its planner takes the chain, else to
-K2. So every config the JAX package converts runs on a kernel; a failed
-build or launch raises.
+(f32, C <= 64) in one launch where that kernel's planner takes it, and
+otherwise to its chains one by one (then the mean in f32); ``chain_route``
+gives a chain of C <= 64 to the narrow kernel where its planner takes the
+chain, else to K2. So every config the JAX package converts runs on a
+kernel; a failed build or launch raises.
 
 Both wrappers are ``torch.autograd.Function``s, on the card and on the CPU.
 Their backward is what the JAX package's ``custom_vjp`` does: it recomputes
@@ -60,6 +60,7 @@ import torch.nn.functional as F
 
 from ..device import H100_SMS
 from ..utils import profiling
+from ..utils.weight_cache import WeightCache
 
 # shared memory a block may use on Hopper (232,448 bytes) and the registers
 # of an SM
@@ -121,15 +122,6 @@ NARROW_CONSUMERS, NARROW_CONSUMER_REGS = 256, 240
 NARROW_PRODUCERS, NARROW_PRODUCER_REGS = 128, 24
 NARROW_ACC_REGS = 128
 NARROW_BARRIERS = 2 * NARROW_MAX_STAGES + 9
-# Which hand-written kernel takes a chain (``resblock_chain``) and an f32
-# stage tail (``mrf_stage``) at each width the narrow kernel is built for,
-# by I/O dtype: "narrow", or "wide" (K2 per chain). Any other width takes
-# K2, and a bf16 stage tail K1. Measured on the card in call `f10a`
-# (chip_smoke.py phase `kernels`, PERF.md §6): the narrow kernel was the
-# faster at every shape of every path, in both dtypes.
-NARROW_ROUTE = {(cp, dtype): "narrow" for cp in NARROW_CHANNELS
-                for dtype in ("float32", "bfloat16")}
-
 launches = {"mrf_stage": 0, "resblock_chain": 0, "narrow_chain": 0}
 
 
@@ -335,15 +327,6 @@ def narrow_channels(channels: int) -> int:
     return next(cp for cp in NARROW_CHANNELS if channels <= cp)
 
 
-def narrow_route(channels: int, dtype: torch.dtype) -> str:
-    """"narrow" or "wide": the kernel ``NARROW_ROUTE`` gives a chain, or an
-    f32 stage tail, of ``channels`` channels and I/O ``dtype``."""
-    if channels > NARROW_CHANNELS[-1]:
-        return "wide"
-    return NARROW_ROUTE.get((narrow_channels(channels), str(dtype).split(".")[-1]),
-                            "wide")
-
-
 class NarrowPlan(NamedTuple):
     """The narrow kernel's geometry for one launch: channels it runs at,
     blocks of a cluster, rows of a block's buffer, rows at each end of the
@@ -421,14 +404,14 @@ def _fits(plan: Callable, *args) -> bool:
 def stage_route(channels: int, dtype: torch.dtype, kernel_sizes: Sequence[int],
                 dilations: Sequence[int]) -> str:
     """The kernel that takes a stage tail (``mrf_stage``): "k1" (one launch
-    of K1, bf16), "narrow" (one launch of the narrow kernel, f32, where
-    ``NARROW_ROUTE`` sends the width), or "chains" (each chain through
-    ``resblock_chain``, then the mean in f32) where that kernel's planner
-    refuses the stage."""
+    of K1, bf16), "narrow" (one launch of the narrow kernel, f32, C <= 64),
+    or "chains" (each chain through ``resblock_chain``, then the mean in
+    f32) where that kernel's planner refuses the stage. The narrow kernel
+    was the faster at every shape of every path (chip_smoke.py phase
+    `kernels`, PERF.md §6)."""
     if dtype != torch.float32:
         return "k1" if _fits(stage_plan, channels, kernel_sizes, dilations) else "chains"
-    if (narrow_route(channels, dtype) == "narrow"
-            and _fits(narrow_plan, channels, kernel_sizes, dilations)):
+    if _fits(narrow_plan, channels, kernel_sizes, dilations):  # C <= 64
         return "narrow"
     return "chains"
 
@@ -436,48 +419,18 @@ def stage_route(channels: int, dtype: torch.dtype, kernel_sizes: Sequence[int],
 @_memo
 def chain_route(channels: int, dtype: torch.dtype, kernel_size: int,
                 dilations: Sequence[int]) -> str:
-    """The kernel that takes one chain (``resblock_chain``): "narrow" where
-    ``NARROW_ROUTE`` sends the width, the narrow kernel's planner takes the
-    chain, and a 2-block cluster stores at least ``NARROW_MIN_SHARE`` of
-    its rows; else "wide" (K2, which takes every chain)."""
-    if narrow_route(channels, dtype) != "narrow":
+    """The kernel that takes one chain (``resblock_chain``): "narrow" at C
+    <= 64 in f32 or bf16 where the narrow kernel's planner takes the chain
+    and a 2-block cluster stores at least ``NARROW_MIN_SHARE`` of its rows;
+    else "wide" (K2, which takes every chain)."""
+    if dtype not in (torch.float32, torch.bfloat16):
         return "wide"
-    try:  # the largest cluster holds the most rows: it fits where any does
+    try:  # the largest cluster holds the most rows: it fits where any does;
+        # the planner refuses C > 64
         plan = narrow_plan(channels, (kernel_size,), dilations, cluster=max(NARROW_CLUSTERS))
     except ValueError:
         return "wide"
     return "narrow" if plan.tile >= NARROW_MIN_SHARE * plan.cluster * plan.rows else "wide"
-
-
-class WeightCache:
-    """Packed weights of one module, built at first use and rebuilt when one
-    of the tensors they were made from is replaced, modified in place, or
-    moved (identity, ``_version``, storage, dtype, device). Each rebuild
-    adds one to the recorder's counter ``counter``. The entry is one tuple,
-    replaced whole, so a thread never reads one key's value under another's."""
-
-    def __init__(self, counter: str = "weight_packs"):
-        self.counter = counter
-        self._entry = (None, None, None)  # key, value, the key's tensors
-        self.builds = 0
-
-    def __deepcopy__(self, memo) -> "WeightCache":
-        # a copied module's tensors are new ones: it builds its own
-        return WeightCache(self.counter)
-
-    def get(self, tensors: Sequence[torch.Tensor], extra, build: Callable):
-        key = (extra, [(id(t), t._version, t.data_ptr(), t.dtype, t.device, t.shape)
-                       for t in tensors])
-        entry = self._entry
-        if key != entry[0]:
-            # the key's tensors are kept detached: their storage stays alive
-            # (no other tensor takes its address while the key holds it)
-            # but no autograd graph does
-            entry = (key, build(), [t.detach() for t in tensors])
-            self._entry = entry
-            self.builds += 1
-            profiling.count(self.counter)
-        return entry[1]
 
 
 def _pad_weights(ws, bs, cp: int):
@@ -733,7 +686,7 @@ def mrf_stage(x, chains, kernel_sizes: Sequence[int],
     input is one launch of K1 (bf16 operands into f32 sums). f32 input keeps
     f32 precision: at C <= 64 one launch of the narrow kernel (3xTF32, the
     mean over the chains in its last store), wider each chain through K2's
-    3xTF32 conv kernel and the mean in f32 (``NARROW_ROUTE``). With a
+    3xTF32 conv kernel and the mean in f32 (``stage_route``). With a
     ``cache`` the packed weights are kept between calls. The
     gradient with respect to x and every weight and bias is the plain-conv
     recompute's (``_MrfStage``)."""
@@ -807,7 +760,7 @@ def resblock_chain(x, w1s, b1s, w2s, b2s, dilations: Sequence[int],
                    slope: float = 0.1,
                    cache: Optional[WeightCache] = None) -> torch.Tensor:
     """One ResBlock chain, f32 compute (3xTF32), I/O in x's dtype. At C <=
-    64 one launch of the narrow kernel (``NARROW_ROUTE``); wider, K2: two
+    64 one launch of the narrow kernel (``chain_route``); wider, K2: two
     launches of the conv kernel per dilation (conv_d into an f32 scratch,
     then conv_1 with the residual), the state between dilations in f32.
     Each launch adds one to its kernel's count. With a ``cache`` the split

@@ -24,9 +24,9 @@ from torch import nn
 
 from ..device import resolve_device
 from ..ops import crepe_conv
-from ..ops.resblock import WeightCache
 from ..utils import profiling
 from ..utils.profiling import annotated, span
+from ..utils.weight_cache import WeightCache
 from .cents import CENTS_MAPPING, N_CLASS, weighted_cents_decode
 
 SR = 16000

@@ -30,10 +30,10 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.bigru import bigru
 from ..ops.mel import mel_filterbank
-from ..ops.resblock import WeightCache
 from ..ops.stft import stft_magnitude
 from ..utils import profiling
 from ..utils.profiling import span
+from ..utils.weight_cache import WeightCache
 from .bucketing import bucket_samples, reflect_to
 from .cents import weighted_cents_decode
 

@@ -44,6 +44,7 @@ import torch
 
 from ..ops import _build
 from ..ops import resblock as rb
+from ..utils.weight_cache import WeightCache
 
 # (kind, B, C, T, I/O dtype, kernel sizes, dilations, slope): the 10 s
 # RefineGAN 32 kHz conversion's chains, a RefineGAN training step's (B = 8),
@@ -204,7 +205,7 @@ def main(argv) -> int:
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         ref = (rb.mrf_stage_plain(x, chains, dil, slope) if kind == "stage"
                else rb.resblock_chain_plain(x, *chains[0], dil, slope))
-        this = _run(rb, kind, x, chains, ks, dil, slope, rb.WeightCache())
+        this = _run(rb, kind, x, chains, ks, dil, slope, WeightCache())
         rb.reset_launches()
         err, bad = _rel(ref, this()), False
         row = {"cluster": rb.narrow_plan(c, ks, dil, t, b).cluster if c <= 64 else None,
@@ -223,7 +224,7 @@ def main(argv) -> int:
         if rb.launches["narrow_chain"]:
             for name, fn in _alternatives(c, ks, dil, t, b).items():
                 with fn():
-                    alt = _run(rb, kind, x, chains, ks, dil, slope, rb.WeightCache())
+                    alt = _run(rb, kind, x, chains, ks, dil, slope, WeightCache())
                     row[f"{name}_rel_err"] = _rel(ref, alt())
                     row[f"{name}_ms"] = _time_ms(alt)
                     bad |= row[f"{name}_rel_err"] > tol

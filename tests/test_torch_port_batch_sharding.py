@@ -12,6 +12,8 @@ path on two replicas writes the files the unsharded one writes (within one
 step of their 16-bit samples).
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

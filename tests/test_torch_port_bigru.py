@@ -13,6 +13,8 @@ it: ``python -m pytest --noconftest -m cuda tests/test_torch_port_bigru.py``
 there) and ``chip_smoke.py`` hold it against ``bigru_plain`` there.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import numpy as np
 import pytest
 import torch

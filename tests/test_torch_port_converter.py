@@ -15,6 +15,8 @@ every command line of the JAX CLI's ``infer`` parses in the port's parser
 to the same values.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import argparse
 import shutil
 

@@ -7,6 +7,8 @@ f0 from ``CREPE.predict``; the batch norms at torchcrepe's epsilon; and
 windows, held stage by stage and window by window to the reference's steps
 (``benchmark/windowed.py``'s comparison). This file imports no JAX."""
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import json
 import os
 

@@ -14,6 +14,8 @@ to the plain blocks in float64 at both capacities, batches of 1, 17 and 512
 frames, in single-pass tf32 and in 3xTF32.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import copy
 import math
 

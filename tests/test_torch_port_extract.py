@@ -17,6 +17,8 @@ the small widths by monkeypatching; nothing else changes. Held:
 - extraction asked for on a card that is absent raises.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import dataclasses
 import os
 import shutil

@@ -19,6 +19,8 @@ bridges (or through a checkpoint file in the reference layout):
   ``F0Extractor`` utility, and the MIDI transcription (the same bytes).
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import types
 
 import jax

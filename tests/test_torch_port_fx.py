@@ -16,6 +16,8 @@ tolerances, absolute:
 - formant shifting: 5e-5 (its cepstrum is a float32 FFT, as numpy's is).
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,8 @@
   for on a card that is absent raises.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import os
 
 import jax

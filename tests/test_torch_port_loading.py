@@ -16,6 +16,8 @@ weights, go through the JAX loader and the port's:
   and a small model's ``infer_from_audio`` within 1e-3.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import json
 import struct
 

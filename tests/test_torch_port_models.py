@@ -6,6 +6,8 @@ max abs error <= 1e-4 relative to the output's max magnitude (the two
 frameworks sum in different orders; JAX runs at "highest" matmul precision).
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import dataclasses
 
 import jax

@@ -1,5 +1,5 @@
 """The narrow chain kernel's host side on the CPU (``ops/resblock.py``:
-``narrow_plan``, ``pack_conv_narrow`` / ``pack_narrow``, ``narrow_route``)
+``narrow_plan``, ``pack_conv_narrow`` / ``pack_narrow``, the routes' rule)
 and its tiling emulated in plain torch against the plain versions; and the
 JAX package's Pallas kernels (interpret mode) in the kernel's regime, C = 32
 and 64 at RefineGAN's slope 0.2, against the port's plain versions.
@@ -11,6 +11,8 @@ apart). The tiling emulation holds 1e-6 (the same convs, cut into tiles).
 The CUDA kernel itself is held against the plain versions on the card by
 ``chip_smoke.py``.
 """
+
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
 
 import jax.numpy as jnp
 import numpy as np
@@ -141,14 +143,15 @@ def test_dispatch_rule():
     """The measured rule: the narrow kernel takes every chain and every f32
     stage tail at C <= 64 in either dtype; wider ones take K2 (a bf16 stage
     tail at C <= 128 takes K1, before the rule is asked)."""
-    assert set(rb.NARROW_ROUTE) == {(cp, d) for cp in rb.NARROW_CHANNELS
-                                    for d in ("float32", "bfloat16")}
     for c in (1, 8, 16, 24, 32, 48, 64):
         for dtype in (torch.float32, torch.bfloat16):
-            assert rb.narrow_route(c, dtype) == "narrow"
+            assert rb.chain_route(c, dtype, 3, (1,)) == "narrow"
+        assert rb.stage_route(c, torch.float32, (3,), (1,)) == "narrow"
+        assert rb.stage_route(c, torch.bfloat16, (3,), (1,)) == "k1"
     for c in (65, 96, 128, 256, 512):
         for dtype in (torch.float32, torch.bfloat16):
-            assert rb.narrow_route(c, dtype) == "wide"
+            assert rb.chain_route(c, dtype, 3, (1,)) == "wide"
+            assert rb.stage_route(c, dtype, (3,), (1,)) != "narrow"
 
 
 @pytest.mark.parametrize("c", [16, 32, 64])

@@ -8,6 +8,8 @@ launch counters must stay 0. The CUDA kernels themselves are held against
 these plain versions on the card by ``chip_smoke.py``.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,6 +19,7 @@ import torch.nn.functional as F
 
 from rvc_tpu_torch.ops import resblock as rb
 from rvc_tpu_torch.ops import retrieval as rt
+from rvc_tpu_torch.utils.weight_cache import WeightCache
 
 REL_TOL = 1e-5
 DIL = (1, 3, 5)
@@ -517,7 +520,7 @@ def test_weight_cache_reused_and_rebuilt():
     """The cache builds once for the same tensors and again after one of
     them is modified in place, replaced, or the extra key changes."""
     ws = [torch.randn(4, 4, 3) for _ in range(3)]
-    cache, calls = rb.WeightCache(), []
+    cache, calls = WeightCache(), []
 
     def build():
         calls.append(1)

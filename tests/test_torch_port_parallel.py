@@ -16,6 +16,8 @@ optimizer state, and a stop asked of one rank stops both at the same
 step. A rank that raises ends the launch with a non-zero code.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import dataclasses
 import glob
 import json
@@ -89,7 +91,6 @@ def two_steps(option: str, rank: int = 0, world: int = 1):
     from rvc_tpu_torch.train.step import TrainStep
     from rvc_tpu_torch.train.trainer import init_parameters
 
-    torch.set_num_threads(2)
     cfg = tiny_cfg(**OPTIONS[option])
     g = Synthesizer.from_config(cfg, device="cpu", train=True, zero_noise=True)
     d = small_mpd()
@@ -208,7 +209,6 @@ def _tiny_trainer_rank(rank, device, args, stop_after=None, out=None):
     from rvc_tpu_torch import cli
     from rvc_tpu_torch.train import trainer as tm
 
-    torch.set_num_threads(1)
     # the test reads metrics.jsonl; TensorBoard's import (TensorFlow, where
     # installed) would cost a rank seconds
     sys.modules["torch.utils.tensorboard"] = None

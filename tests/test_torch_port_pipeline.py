@@ -10,6 +10,8 @@ fall back to the CPU, and no module of the port imports JAX, flax or the
 JAX package.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import ast
 import os
 

@@ -16,6 +16,8 @@ package's, on the CPU.
 - the ``--use_orbax`` refusal names what the port writes instead.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import dataclasses
 import json
 import os

@@ -13,6 +13,8 @@ forward and a batch norm launch, a forward's host time and the cache
 checks' host time.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import contextlib
 import copy
 import json

@@ -12,6 +12,8 @@ kernels themselves are held against the plain versions on the card by
 ``chip_smoke.py``.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

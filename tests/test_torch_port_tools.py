@@ -8,6 +8,8 @@ relative), presets, ``inspect_artifacts``, ``extras``, ``py_kill`` and
 ``check_environment`` and profiling helpers without a card.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import json
 import os
 import signal

@@ -12,6 +12,8 @@ tests/test_torch_port_tracing.py``) and names every stream synchronisation
 of a warm fused 10 s conversion, with the recorder's cost per request.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import contextlib
 import json
 import linecache
@@ -341,7 +343,7 @@ def test_log_stays_bounded():
 
 
 def test_counters_count():
-    from rvc_tpu_torch.ops.resblock import WeightCache
+    from rvc_tpu_torch.utils.weight_cache import WeightCache
 
     before = profiling.counters().get("weight_packs", 0)
     cache, w = WeightCache(), torch.ones(3)

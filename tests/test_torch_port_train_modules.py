@@ -10,6 +10,8 @@ power drifts); the kernels' gradients to 1e-5 (plain convolutions on
 both sides).
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import dataclasses
 import os
 
@@ -20,7 +22,6 @@ import pytest
 import torch
 
 from rvc_tpu_torch import convert
-from test_torch_port_train_step import two_threads  # noqa: F401
 
 REL_TOL = 1e-4
 
@@ -481,7 +482,7 @@ def test_weight_cache_keeps_no_graph_alive():
     import gc
     import weakref
 
-    from rvc_tpu_torch.ops.resblock import WeightCache
+    from rvc_tpu_torch.utils.weight_cache import WeightCache
 
     cache = WeightCache()
     v = torch.ones(4, 4, requires_grad=True)

@@ -17,6 +17,8 @@ true gradient vanishes, as for the attention key bias, which the softmax
 ignores, rounding noise decides the sign).
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import dataclasses
 
 import jax
@@ -34,17 +36,6 @@ TINY_MODEL = dict(inter_channels=8, hidden_channels=8, filter_channels=16,
                   gin_channels=8, spk_embed_dim=4, resblock_kernel_sizes=(3,),
                   resblock_dilation_sizes=((1, 3),), upsample_rates=(8, 8),
                   upsample_kernel_sizes=(16, 16))
-
-
-@pytest.fixture(scope="module", autouse=True)
-def two_threads():
-    """Two intra-op threads for the module's tests: the suite runs several
-    workers on the machine's cores, and more threads a worker only contend
-    (the training files take about a third of the time)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_cfg(get_config, **train):

@@ -9,11 +9,13 @@ updated parameters to 1e-6 absolute in all but 3% of the elements and to
 decides the sign of those near zero).
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import pytest
 import torch
 
 from test_torch_port_train_step import (_close_metrics, _close_params, port_pair,
-                                        run_jax_step, two_threads)  # noqa: F401
+                                        run_jax_step)
 
 
 @pytest.fixture(scope="module")

@@ -9,6 +9,8 @@ shapes and values that JAX's ``export_rvc_g_pth`` and ``export_rvc_d_pth``
 write for the same parameters (exactly: both store the float32 tensors).
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import dataclasses
 import json
 import os
@@ -17,8 +19,6 @@ import jax
 import numpy as np
 import pytest
 import torch
-
-from test_torch_port_train_step import two_threads  # noqa: F401
 
 HOP = 64
 

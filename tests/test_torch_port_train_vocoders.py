@@ -12,6 +12,8 @@ discriminator zoo, on the CPU.
   exported deployable ``.pth`` rebuilt by ``build_synthesizer``.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import dataclasses
 import json
 import os
@@ -23,8 +25,7 @@ import pytest
 import torch
 
 from rvc_tpu_torch import convert
-from test_torch_port_train_step import (LR, make_batch, make_cfg,  # noqa: F401
-                                        jax_ids_slice, two_threads)
+from test_torch_port_train_step import LR, jax_ids_slice, make_batch, make_cfg
 from test_torch_port_train_trainer import write_dataset
 from test_torch_port_vocoders import _random_params
 

@@ -14,6 +14,8 @@ the JAX CLI's ``tts``, ``download`` and ``prerequisites`` command lines
 parse in the port's parser to the same values.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import filecmp
 import io
 import json

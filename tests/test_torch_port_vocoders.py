@@ -13,6 +13,8 @@ changes one element's gradient tenfold); the blocked phase as its test
 states.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import dataclasses
 import os
 
@@ -23,7 +25,6 @@ import pytest
 import torch
 
 from rvc_tpu_torch import convert
-from test_torch_port_train_step import two_threads  # noqa: F401
 
 REL_TOL = 1e-4
 VOCODERS = ("HiFi-GAN", "MRF HiFi-GAN", "RefineGAN")

@@ -11,6 +11,8 @@ sample for sample, and the windowed f0 comes from the predictor's float32
 model even in a bf16 pipeline.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -14,6 +14,8 @@ with a separated top singular value, so that both packages' power
 iterations, from their own start vectors, reach it.
 """
 
+import _torch_threads  # noqa: F401  one CPU thread a process (see the module)
+
 import functools
 
 import jax
@@ -23,7 +25,6 @@ import pytest
 import torch
 
 from rvc_tpu_torch import convert
-from test_torch_port_train_step import two_threads  # noqa: F401
 
 REL_TOL = 1e-4
 # one tensor's gradient in norm: the first convs on the CQT and the STFT
