@@ -993,11 +993,13 @@ def _reset_counts():
     from rvc_tpu_torch.ops import crepe_conv as cc
     from rvc_tpu_torch.ops import resblock as rb
     from rvc_tpu_torch.ops import retrieval as rt
+    from rvc_tpu_torch.ops import viterbi as vt
 
     rb.reset_launches()
     rt.reset_launches()
     bg.reset_launches()
     cc.reset_launches()
+    vt.reset_launches()
     _RMVPE_FORWARDS[0] = 0
 
 
@@ -1007,14 +1009,15 @@ def _counts():
     from rvc_tpu_torch.ops import crepe_conv as cc
     from rvc_tpu_torch.ops import resblock as rb
     from rvc_tpu_torch.ops import retrieval as rt
+    from rvc_tpu_torch.ops import viterbi as vt
 
-    return {**rb.launches, **rt.launches, **bg.launches, **cc.launches,
+    return {**rb.launches, **rt.launches, **bg.launches, **cc.launches, **vt.launches,
             "rmvpe_forward": _RMVPE_FORWARDS[0]}
 
 
-def _require_all_launched(counts: dict, where: str, but=("crepe_conv",)) -> None:
-    """Every kernel launched on a path, but those in ``but`` (by default C,
-    where no CREPE runs)."""
+def _require_all_launched(counts: dict, where: str, but=("crepe_conv", "viterbi")) -> None:
+    """Every kernel launched on a path, but those in ``but`` (by default C
+    and V, where no CREPE runs)."""
     for name, c in counts.items():
         if name not in but:
             require(c > 0, f"kernel {name} was not launched on the {where}")
@@ -3006,7 +3009,7 @@ def phase_prep(smi: str, root: str, files: dict):
     cdist + argmin, and each predictor on the card against the CPU."""
     import torch
 
-    from rvc_tpu_torch.ops import crepe_conv
+    from rvc_tpu_torch.ops import crepe_conv, viterbi
     from rvc_tpu_torch.ops import retrieval as rt
     from rvc_tpu_torch.ops.retrieval import FeatureIndex
     from rvc_tpu_torch.train.index_builder import build_index
@@ -3110,19 +3113,21 @@ def phase_prep(smi: str, root: str, files: dict):
         walls["big_build"] = time.perf_counter() - t0
         emit({"phase": "prep_step", "step": "big_build", "wall_s": walls["big_build"]})
         res["big_build_knn_launches"] = rt.launches["knn_topk"] - before
-        # every other f0 method, 10 s each; the CREPE methods through C
+        # every other f0 method, 10 s each; the CREPE methods through C and V
         for method in PREP_F0_METHODS:
             shutil.copy(f0_paths["crepe_tiny" if method == "crepe-tiny" else "crepe_full"],
                         crepe_pt)
             out = os.path.join(root, f"prep_out_{method}.wav")
-            before = crepe_conv.launches["crepe_conv"]
+            before = crepe_conv.launches["crepe_conv"], viterbi.launches["viterbi"]
             cli(f"infer_{method}", ["infer", "--input_path", wav10, "--output_path", out,
                                     "--pth_path", os.path.join(exp, "prep_1e.pth"),
                                     "--f0_method", method])
             _check_wav(out, 479040, f"infer --f0_method {method}")
-            res[f"infer_{method}_crepe_conv"] = crepe_conv.launches["crepe_conv"] - before
-            require(res[f"infer_{method}_crepe_conv"] > 0 or not method.startswith("crepe"),
-                    f"infer --f0_method {method}: kernel C was not launched")
+            res[f"infer_{method}_crepe_conv"] = crepe_conv.launches["crepe_conv"] - before[0]
+            res[f"infer_{method}_viterbi"] = viterbi.launches["viterbi"] - before[1]
+            for kernel, name in (("crepe_conv", "C"), ("viterbi", "V")):
+                require(res[f"infer_{method}_{kernel}"] > 0 or not method.startswith("crepe"),
+                        f"infer --f0_method {method}: kernel {name} was not launched")
 
     child_counts = {}
     _reset_counts()
@@ -3807,6 +3812,160 @@ def _crepe_useful_flops(convs, frames: int):
     return out
 
 
+VITERBI_SONGS_S = (60, 240)   # V against the host loop on these songs
+# the seeds whose benchmark songs V and the host decode (crepe48.songs'
+# configuration and mix), frames whose path differs counted
+VITERBI_SEEDS = (3000000019, 2654435761, 4000000007)
+PEAK_FP64 = 34e12             # H100 SXM FP64 FLOP/s outside the tensor cores
+
+
+def _masked_salience(pred, audio: np.ndarray):
+    """``CREPE.predict``'s salience of ``audio`` on the card (512-frame
+    batches), the bins outside 50-1100 Hz zeroed."""
+    import torch
+
+    from rvc_tpu_torch.predictors import crepe
+
+    pad = crepe.WINDOW // 2
+    padded = torch.from_numpy(np.pad(np.asarray(audio, np.float32), (pad, pad))).cuda()
+    frames = padded.unfold(0, crepe.WINDOW, 160)
+    sal = torch.cat([pred.salience(frames[i:i + CREPE_FRAMES])
+                     for i in range(0, frames.shape[0], CREPE_FRAMES)]).float()
+    cents = crepe.CENTS_MAPPING
+    outside = (cents < 1200 * np.log2(50.0 / 10.0)) | (cents > 1200 * np.log2(1100.0 / 10.0))
+    return sal.masked_fill(torch.from_numpy(outside).cuda(), 0.0)
+
+
+def _host_f0(sal: np.ndarray) -> np.ndarray:
+    """``CREPE.predict``'s host decode of a masked salience."""
+    from rvc_tpu_torch.predictors import crepe
+
+    f0 = 10.0 * (2.0 ** (crepe._decode_viterbi(sal) / 1200.0))
+    f0[sal.max(axis=1) < 1e-3] = 0.0
+    return f0.astype(np.float32)
+
+
+def _viterbi_floor(sal):
+    """``rvc_viterbi_floor`` on a masked salience: V's recurrence without
+    the band (the step's latency floor), after V's observations; its path
+    is not V's."""
+    import torch
+
+    from rvc_tpu_torch.ops import viterbi
+
+    lo = viterbi.observations(sal)
+    t = sal.shape[0]
+    path = torch.empty(t, dtype=torch.int64, device=sal.device)
+    back = torch.empty((t, viterbi.N_BINS), dtype=torch.uint8, device=sal.device)
+    err = viterbi._lib().rvc_viterbi_floor(
+        lo.data_ptr(), viterbi._band_on(sal.device).data_ptr(), back.data_ptr(),
+        path.data_ptr(), t, torch.cuda.current_stream().cuda_stream)
+    require(err == 0, f"viterbi floor: CUDA error {err}")
+    return path
+
+
+def _viterbi_rows(model, signal: dict):
+    """Kernel V on CREPE full's salience of 60 s and 240 s songs: its path
+    against the host's ``_viterbi_path`` (to the frame) and its ms beside
+    the host loop's, the observations' ms, the step's floor (no band), the
+    bound (bytes at 3.35 TB/s, the band's adds and compares at FP64's 34
+    TFLOP/s); its observations against numpy's (values off, the most ulps
+    off); then ``CREPE.predict`` on the 60 s song, the main path, through V
+    against the host decode (f0 within 1e-5) with V's launches there."""
+    import torch
+
+    from benchmark.traffic import voice
+    from rvc_tpu_torch.ops import viterbi
+    from rvc_tpu_torch.predictors import crepe
+
+    pred = crepe.CREPE("full", model, device="cuda")
+    rows = []
+    for seconds in VITERBI_SONGS_S:
+        song = voice(16000 * seconds, np.random.default_rng(23 + seconds), signal)
+        with torch.no_grad():
+            sal = _masked_salience(pred, song)
+        host = sal.cpu().numpy()
+        t0 = time.perf_counter()
+        want = crepe._viterbi_path(host)
+        host_ms = 1e3 * (time.perf_counter() - t0)
+        got = viterbi.viterbi_path(sal).cpu().numpy()
+        ms = gpu_time_ms(lambda: viterbi.viterbi_path(sal), reps=5)
+        obs_ms = gpu_time_ms(lambda: viterbi.observations(sal), reps=5)
+        floor_ms = gpu_time_ms(lambda: _viterbi_floor(sal), reps=5)
+        x = host.astype(np.float64)
+        x = np.log(x / np.maximum(x.sum(axis=1, keepdims=True), 1e-12) + 1e-12)
+        lo = viterbi.observations(sal).cpu().numpy()
+        t = host.shape[0]
+        b_ms, bytes_ms, ops_ms = bound(t * 360 * (4 + 8 + 8 + 1 + 1) + 8 * t,
+                                       [(2 * 23 * 360 * t, PEAK_FP64)])
+        row = {"song_s": seconds, "frames": t, "ms": round(ms, 4),
+               "obs_ms": round(obs_ms, 4), "floor_ms": round(floor_ms, 4),
+               "us_a_step": round(1e3 * (ms - obs_ms) / t, 4),
+               "floor_us_a_step": round(1e3 * (floor_ms - obs_ms) / t, 4),
+               "bound_ms": round(b_ms, 5), "bytes_ms": round(bytes_ms, 5),
+               "ops_ms": round(ops_ms, 5), "host_ms": round(host_ms, 2),
+               "frames_off_host": int((got != want).sum()),
+               "obs_off_numpy": int((lo != x).sum()), "obs_values": int(x.size),
+               "obs_max_ulps_off_numpy": float(np.max(np.abs(lo - x) / np.spacing(np.abs(x))))}
+        emit({"phase": "viterbi", **row})
+        require(row["frames_off_host"] == 0,
+                f"viterbi on {seconds} s: the path leaves the host's on "
+                f"{row['frames_off_host']} frames")
+        rows.append(row)
+        if seconds == VITERBI_SONGS_S[0]:
+            viterbi.reset_launches()
+            f0 = pred.predict(song)
+            want_f0 = _host_f0(host)
+            rel = float(np.max(np.abs(f0 - want_f0) / np.maximum(np.abs(want_f0), 1e-30)))
+            predict_launches = viterbi.launches["viterbi"]
+            emit({"phase": "viterbi_predict", "song_s": seconds, "frames": int(f0.size),
+                  "launches": predict_launches, "f0_max_rel_err": rel,
+                  "voiced_frames": int((f0 > 0).sum())})
+            require(predict_launches == 2 and rel <= 1e-5
+                    and np.array_equal(f0 == 0, want_f0 == 0),
+                    f"CREPE.predict on the card: {predict_launches} launches of V, "
+                    f"rel err {rel} to the host decode")
+    return rows, predict_launches
+
+
+def _viterbi_on_songs():
+    """V and the host decode on the benchmark's songs (``crepe48.songs``:
+    its configuration's CREPE full seeded as ``benchmark/windowed.py``
+    seeds it, each song high-passed and padded as the windowed path pads
+    it), for each of ``VITERBI_SEEDS``: the frames whose path differs."""
+    import torch
+
+    from benchmark import traffic, weights, windowed
+    from rvc_tpu_torch.ops import viterbi
+    from rvc_tpu_torch.predictors import crepe
+
+    with open(os.path.join(REPO, "benchmark", "configs", "crepe48.json")) as f:
+        config = json.load(f)
+    with open(os.path.join(REPO, "benchmark", "traffic", "songs.json")) as f:
+        mix = json.load(f)
+    model = crepe.CrepeModel("full")
+    shapes = {"crepe": weights.float_shapes(model)}
+    lengths = traffic.lengths(mix)
+    out = []
+    for seed in VITERBI_SEEDS:
+        model.load_state_dict(windowed.model_states(config, shapes, seed, "cuda")["crepe"],
+                              strict=False)
+        pred = crepe.CREPE("full", model.cuda().eval(), device="cuda")
+        frames = off = 0
+        for audio in traffic.Traffic(mix, seed).set:
+            _, pad, _ = windowed._padded(audio, mix["windows"])
+            with torch.no_grad():
+                sal = _masked_salience(pred, pad)
+            got = viterbi.viterbi_path(sal).cpu().numpy()
+            want = crepe._viterbi_path(sal.cpu().numpy())
+            frames += want.size
+            off += int((got != want).sum())
+        out.append({"seed": seed, "songs": len(lengths), "frames": frames,
+                    "frames_off_host": off})
+        emit({"phase": "viterbi_songs", **out[-1], "song_s": [n / 16000 for n in lengths]})
+    return out
+
+
 def phase_crepe(smi: str):
     """Kernel C (``ops/crepe_conv.py``) at the song path's shapes: a batch
     of 512 frames through CREPE's six blocks, full and tiny, against the
@@ -3816,7 +3975,8 @@ def phase_crepe(smi: str):
     plain blocks in float64 (C in single-pass tf32 and in 3xTF32), and for
     full each block's ms beside cuDNN's. Then ``CREPE.predict`` on a 60 s
     song, through ``CrepeModel.forward``'s routing: six launches of C a
-    512-frame batch."""
+    512-frame batch. Then kernel V on full's salience (``_viterbi_rows``)
+    and on the benchmark's seeded songs (``_viterbi_on_songs``)."""
     import torch
 
     from benchmark import weights
@@ -3826,6 +3986,7 @@ def phase_crepe(smi: str):
     from rvc_tpu_torch.ops import crepe_conv
     from rvc_tpu_torch.predictors import crepe
 
+    start = time.perf_counter()
     switches = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     signal = {**weights.CALIBRATION_SIGNAL, "f0_hz": [110, 660]}
@@ -3920,9 +4081,23 @@ def phase_crepe(smi: str):
                     f"crepe {capacity}: C off the float64 blocks: {row['err_tf32']:.3e} "
                     f"(tf32), {row['err_3xtf32']:.3e} (3xTF32)")
             rows[capacity] = row
+            if capacity == "full":
+                v_rows, v_launches = _viterbi_rows(model, signal)
+        t0 = time.perf_counter()
+        songs = _viterbi_on_songs()
+        songs_s = time.perf_counter() - t0
     finally:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = switches
-    return {"crepe_conv": rows["full"]}, {"crepe_conv": rows["full"]["song_launches"]}
+    v_long = v_rows[-1]
+    v_rec = {"ms": v_long["ms"], "bound_ms": v_long["bound_ms"],
+             "floor_ms": v_long["floor_ms"], "plain_ms": v_long["host_ms"],
+             "song_s": v_long["song_s"], "frames_off_host": v_long["frames_off_host"],
+             "songs_frames": sum(r["frames"] for r in songs),
+             "songs_frames_off_host": sum(r["frames_off_host"] for r in songs)}
+    emit({"phase": "crepe", "seconds": time.perf_counter() - start,
+          "viterbi_songs_seconds": songs_s})
+    return ({"crepe_conv": rows["full"], "viterbi": v_rec},
+            {"crepe_conv": rows["full"]["song_launches"], "viterbi": v_launches})
 
 
 KERNEL_META = {
@@ -3937,6 +4112,9 @@ KERNEL_META = {
     # none: the JAX package's CREPE runs lax convolutions (no Pallas kernel)
     "crepe_conv": ("rvc_tpu_torch/csrc/crepe_conv.cu",
                    "none (rvc_tpu/predictors/crepe.py: lax convs)"),
+    # none: the JAX package decodes CREPE's salience in numpy on the host
+    "viterbi": ("rvc_tpu_torch/csrc/viterbi.cu",
+                "none (rvc_tpu/predictors/crepe.py:71: numpy on the host)"),
 }
 # the TPU kernels the narrow chain kernel carries: fused_resblock's chains
 # at C <= 64 and fused_mrf's f32 stage tails
@@ -3944,7 +4122,7 @@ NARROW_CARRIES = ["rvc_tpu/ops/resblock_pallas.py:239", "rvc_tpu/ops/resblock_pa
 # the path whose launches and times a kernel's entry of the kernels line
 # reports: the 48 kHz serving path, and for the narrow chain kernel the 10 s
 # RefineGAN conversion through the CLI (phase `zoo`); `unit` where only it ran
-KERNEL_PATH = {"narrow_chain": "zoo_refinegan32", "crepe_conv": "crepe"}
+KERNEL_PATH = {"narrow_chain": "zoo_refinegan32", "crepe_conv": "crepe", "viterbi": "crepe"}
 
 
 def main(argv) -> int:

@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Tuple
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "kernels")
-SOURCES = ("resblock", "resblock_chain", "resblock_narrow", "knn", "bigru", "crepe_conv")
+SOURCES = ("resblock", "resblock_chain", "resblock_narrow", "knn", "bigru", "crepe_conv",
+           "viterbi")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo", "-ldl",
               "-Xptxas", "-v")

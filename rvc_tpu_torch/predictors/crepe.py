@@ -7,10 +7,13 @@ pool) and a Linear to a 360-bin sigmoid salience; f0 from the cents of a
 weighted local average around the argmax or around a Viterbi path. The
 module carries torchcrepe's names (``conv{i}``, ``conv{i}_BN``,
 ``classifier``), so a torchcrepe checkpoint loads as it is. The salience
-runs batched on the model's device; the decode runs on the host. On the
-card each block is one launch of kernel C (``ops/crepe_conv.py``), its
-packed weights and folded batch norms built once per weight version
-(counter ``crepe_packs``); on the CPU the blocks run as plain PyTorch.
+runs batched on the model's device. On the card each block is one launch
+of kernel C (``ops/crepe_conv.py``), its packed weights and folded batch
+norms built once per weight version (counter ``crepe_packs``); on the CPU
+the blocks run as plain PyTorch. The Viterbi decode runs where the
+salience lies: on the card kernel V (``ops/viterbi.py``), only the f0
+coming back to the host; on the CPU the host's numpy ``_viterbi_path``,
+V's plain version.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from ..ops import crepe_conv
+from ..ops import crepe_conv, viterbi
 from ..utils import profiling
 from ..utils.profiling import annotated, span
 from ..utils.weight_cache import WeightCache
@@ -108,24 +111,17 @@ def _decode_weighted(salience: np.ndarray) -> np.ndarray:
     return weighted_cents_decode(sal, torch.argmax(sal, dim=1)).numpy()
 
 
-# triangular transition prior: zero outside |bin distance| < 12 (torchcrepe)
-_VITERBI_W = 12
-
-
 def _viterbi_path(salience: np.ndarray) -> np.ndarray:
     """The Viterbi path over pitch bins (torchcrepe's default decoder): a
     triangular transition prior over the bin distance, zero outside the
-    +-11-bin band. A step is one frame on the host: the 23 band-shifted
-    sources read as one strided view of the padded previous row, one add
-    and one max. Only the values are kept; the backtrack finds each argmax
-    again among the 23 sources of the path's bin, first in order as the
-    step's argmax would."""
+    +-11-bin band (``viterbi.band``). A step is one frame on the host: the
+    23 band-shifted sources read as one strided view of the padded previous
+    row, one add and one max. Only the values are kept; the backtrack finds
+    each argmax again among the 23 sources of the path's bin, first in
+    order as the step's argmax would."""
     t, n = salience.shape
-    r = _VITERBI_W - 1
-    offs = np.arange(-r, _VITERBI_W)
-    w_band = (_VITERBI_W - np.abs(offs)).astype(np.float64)
-    logw = np.log(w_band)
-    log_rowsum = np.log(np.convolve(np.ones(n), w_band, mode="same"))
+    r = viterbi.WIDTH - 1
+    offs, logw, log_rowsum = viterbi.band(n)
 
     obs = salience.astype(np.float64)
     obs = obs / np.maximum(obs.sum(axis=1, keepdims=True), 1e-12)
@@ -154,6 +150,17 @@ def _decode_viterbi(salience: np.ndarray) -> np.ndarray:
     """The weighted average of cents around the Viterbi path."""
     return weighted_cents_decode(torch.from_numpy(salience),
                                  torch.from_numpy(_viterbi_path(salience))).numpy()
+
+
+def _decode_viterbi_card(salience: torch.Tensor, outside: np.ndarray) -> np.ndarray:
+    """The host decode's f0 of a salience [T, 360] f32 on the card: the
+    bins ``outside`` the range zeroed, the path by kernel V, the weighted
+    average of cents around it and the pitch on the card, 0 where no bin
+    reaches 1e-3; only the f0 [T] f32 comes back to the host."""
+    sal = salience.masked_fill(torch.from_numpy(outside).to(salience.device), 0.0)
+    cents = weighted_cents_decode(sal, viterbi.viterbi_path(sal))
+    f0 = 10.0 * torch.pow(2.0, cents / 1200.0)
+    return torch.where(sal.amax(dim=1) < 1e-3, 0.0, f0).cpu().numpy()
 
 
 class CREPE:
@@ -204,10 +211,14 @@ class CREPE:
                 fmin: float = 50.0, fmax: float = 1100.0,
                 decoder: str = "viterbi", batch_size: int = 512) -> np.ndarray:
         """audio [T] at 16 kHz -> f0 [T // hop_length + 1] (centered
-        frames, torchcrepe.predict's pad=True). Spans ``rvc.f0_net`` (the
-        framing, the salience batches, the salience's copy to the host) and
-        ``rvc.f0_decode`` (the range mask, the decoder, the pitch); counter
-        ``f0_frames``."""
+        frames, torchcrepe.predict's pad=True). A salience on the card with
+        the Viterbi decoder is decoded there by kernel V, and only the f0 is
+        copied to the host; any other is copied to the host and decoded
+        there. Spans ``rvc.f0_net`` (the framing, the salience batches; the
+        host's copy of the salience where the host decodes) and
+        ``rvc.f0_decode`` (the range mask, the decoder, the pitch; on the
+        card also the f0's copy, the first wait for the salience); counters
+        ``f0_frames``, ``viterbi_device_frames`` (V's)."""
         audio = np.asarray(audio, np.float32)
         with span("rvc.f0_net"):
             pad = WINDOW // 2
@@ -215,13 +226,18 @@ class CREPE:
             frames = padded.unfold(0, WINDOW, hop_length)
             profiling.count("f0_frames", frames.shape[0])
             salience = torch.cat([self.salience(frames[i:i + batch_size])
-                                  for i in range(0, frames.shape[0], batch_size)])
-            salience = salience.float().cpu().numpy()
+                                  for i in range(0, frames.shape[0], batch_size)]).float()
+            on_card = decoder == "viterbi" and salience.is_cuda
+            if not on_card:
+                salience = salience.cpu().numpy()
 
         with span("rvc.f0_decode"):
             cents_lo = 1200 * np.log2(fmin / 10.0)
             cents_hi = 1200 * np.log2(fmax / 10.0)
-            salience[:, (CENTS_MAPPING < cents_lo) | (CENTS_MAPPING > cents_hi)] = 0.0
+            outside = (CENTS_MAPPING < cents_lo) | (CENTS_MAPPING > cents_hi)
+            if on_card:
+                return _decode_viterbi_card(salience, outside)
+            salience[:, outside] = 0.0
             cents = (_decode_viterbi(salience) if decoder == "viterbi"
                      else _decode_weighted(salience))
             f0 = 10.0 * (2.0 ** (cents / 1200.0))
